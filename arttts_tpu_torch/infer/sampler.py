@@ -1,0 +1,185 @@
+"""Reverse-diffusion sampling and text -> wav serving (port of the Euler
+path of `arttts_tpu/infer/sampler.py`).
+
+The JAX package traces the n-step loop into one program; here it is a
+Python loop of score evaluations, each on the hand-written kernels
+(`models/unet2d_fast.make_score_fn`). Output lengths are static frame
+buckets with masking, as there. Random draws take an explicit
+`torch.Generator` (the JAX `rng` keys); tensors keep the JAX layouts:
+mel (B, T, 80), wav (B, T*256, 1).
+
+Entry points take `device` (default "cuda") and place their inputs there;
+the model and vocoder must already live on it. There is no fallback: with
+no card, a "cuda" call raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from arttts_tpu_torch.core.device import resolve
+from arttts_tpu_torch.models.diffusion_sde import get_noise
+from arttts_tpu_torch.models.unet2d_fast import make_score_fn
+from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, sequence_mask
+
+
+def _on(device, *tensors):
+    dev = resolve(device)
+    return [None if t is None else torch.as_tensor(t).to(dev) for t in tensors]
+
+
+def _check_module(module, device) -> None:
+    dev = resolve(device)
+    got = next(module.parameters()).device
+    if got.type != dev.type or (dev.index is not None and got != dev):
+        raise ValueError(f"{type(module).__name__} lives on {got}, not on {dev}")
+
+
+@torch.inference_mode()
+def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False,
+                      generator: Optional[torch.Generator] = None, score_fn=None):
+    """Euler reverse-SDE (stoc) or probability-flow ODE sampler.
+
+    z, mu: (B, T, C); mask: (B, T, 1). `generator` draws the stochastic
+    increments (required with `stoc`)."""
+    dec = model.config.decoder
+    h = 1.0 / n_timesteps
+    B = z.shape[0]
+    if score_fn is None:
+        score_fn = make_score_fn(model, T=z.shape[1])
+    if stoc and generator is None:
+        raise ValueError("stoc=True needs a generator")
+    xt = z * mask
+    for i in range(n_timesteps):
+        t = torch.full((B,), 1.0 - (i + 0.5) * h, dtype=z.dtype, device=z.device)
+        noise_t = get_noise(t[:, None, None], dec.beta_min, dec.beta_max)
+        score = score_fn(xt, mask, mu, t)
+        if stoc:
+            dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
+            eps = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            dxt = dxt_det + eps * torch.sqrt(noise_t * h)
+        else:
+            dxt = 0.5 * (mu - xt - score) * noise_t * h
+        xt = (xt - dxt) * mask
+    return xt
+
+
+@torch.inference_mode()
+def encode_text(model, x, x_lengths, device="cuda"):
+    """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
+    (B,) the summed ceil of the predicted durations (picks the bucket)."""
+    x, x_lengths = _on(device, x, x_lengths)
+    _check_module(model, device)
+    mu_x, logw, x_mask = model.encode(x, x_lengths)
+    w = torch.exp(logw) * x_mask
+    return mu_x, logw, x_mask, torch.ceil(w).sum(dim=(1, 2))
+
+
+@torch.inference_mode()
+def predict_lengths(model, x, x_lengths, device="cuda"):
+    """Duration-only forward: w = exp(logw) * mask, (B, T_x, 1)."""
+    x, x_lengths = _on(device, x, x_lengths)
+    _check_module(model, device)
+    _, logw, x_mask = model.encode(x, x_lengths)
+    return torch.exp(logw) * x_mask
+
+
+@torch.inference_mode()
+def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_mask,
+                             n_timesteps: int, max_frames: int, temperature: float = 1.0,
+                             stoc: bool = False, length_scale: float = 1.0,
+                             x_durations=None, device="cuda"):
+    """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
+    diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
+    (B, max_frames, n_feats), masked past y_lengths."""
+    mu_x, logw, x_mask, x_durations = _on(device, mu_x, logw, x_mask, x_durations)
+    _check_module(model, device)
+    if x_durations is not None:
+        w = x_durations[:, :, None] * x_mask
+    else:
+        w = torch.exp(logw) * x_mask
+    w_ceil = torch.ceil(w) * length_scale
+    y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
+    y_mask = sequence_mask(y_lengths, max_frames).to(x_mask.dtype)[:, :, None]
+    attn_mask = x_mask[:, :, 0:1] * y_mask[:, None, :, 0]
+    attn = generate_path(w_ceil[:, :, 0], attn_mask)  # (B, T_x, max_frames)
+    mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
+    noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
+    z = mu_y + noise / temperature
+    dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, generator)
+    return mu_y * y_mask, dec * y_mask, attn, y_lengths
+
+
+@torch.inference_mode()
+def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int,
+               max_frames: int, temperature: float = 1.0, stoc: bool = False,
+               length_scale: float = 1.0, x_durations=None, device="cuda"):
+    """Text ids (B, T_x) -> (mu_y, dec, attn, y_lengths)."""
+    x, x_lengths = _on(device, x, x_lengths)
+    _check_module(model, device)
+    mu_x, logw, x_mask = model.encode(x, x_lengths)
+    return synthesize_from_encoding(
+        model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
+        stoc, length_scale, x_durations, device,
+    )
+
+
+@torch.inference_mode()
+def vocode(vocoder, mel, device="cuda"):
+    """(B, T, 80) -> (B, T*256, 1) on the module path."""
+    (mel,) = _on(device, mel)
+    _check_module(vocoder, device)
+    return vocoder(mel)
+
+
+@torch.inference_mode()
+def synthesize_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
+                      n_timesteps: int, max_frames: int, temperature: float = 1.0,
+                      stoc: bool = False, x_durations=None, device="cuda"):
+    """Text -> waveform: (wav (B, max_frames*256, 1), y_lengths)."""
+    _, dec, _, y_lengths = synthesize(
+        model, generator, x, x_lengths, n_timesteps, max_frames, temperature, stoc,
+        x_durations=x_durations, device=device,
+    )
+    return vocode(vocoder, dec, device), y_lengths
+
+
+@torch.inference_mode()
+def synthesize_to_wav_from_encoding(model, vocoder, generator: torch.Generator, mu_x, logw,
+                                    x_mask, n_timesteps: int, max_frames: int,
+                                    temperature: float = 1.0, stoc: bool = False,
+                                    x_durations=None, device="cuda"):
+    """Decode + vocode from `encode_text`'s outputs: (wav, y_lengths)."""
+    _, dec, _, y_lengths = synthesize_from_encoding(
+        model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature, stoc,
+        x_durations=x_durations, device=device,
+    )
+    return vocode(vocoder, dec, device), y_lengths
+
+
+def frame_bucket(predicted_frames: int, buckets=(128, 256, 384, 512, 768, 1024)) -> int:
+    """The smallest static bucket holding `predicted_frames`; past the last,
+    the frame count rounded up to a multiple of 4."""
+    for b in buckets:
+        if predicted_frames <= b:
+            return b
+    return fix_len_compatibility(predicted_frames)
+
+
+def serve_text_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
+                      n_timesteps: int = 50, temperature: float = 1.0,
+                      max_frames_cap: int = 2048, device="cuda"):
+    """The request path: encode once, pick the smallest bucket holding the
+    predicted length on the host, then decode and vocode.
+    Returns (wav, y_lengths, bucket)."""
+    mu_x, logw, x_mask, pred = encode_text(model, x, x_lengths, device)
+    pred_frames = int(math.ceil(float(pred.max())))
+    bucket = frame_bucket(min(fix_len_compatibility(max(pred_frames, 4)), max_frames_cap))
+    wav, y_lengths = synthesize_to_wav_from_encoding(
+        model, vocoder, generator, mu_x, logw, x_mask, n_timesteps, bucket, temperature,
+        device=device,
+    )
+    return wav, y_lengths, bucket

@@ -1,0 +1,278 @@
+"""K1: one whole U-Net ResnetBlock2d (plus its Rezero linear attention) as
+hand-written CUDA kernels, with its plain PyTorch version.
+
+Replaces the TPU kernel `_resblock_kernel` of
+`arttts_tpu/ops/resblock2d_pallas.py` (wrappers `resblock2d_packed` :916,
+C=64, and `resblock2d_wide` :1107, C=128/256). The function is the module's
+(`models/unet2d.py:ResnetBlock2d`, `Block2d`, `Rezero(LinearAttention2d)`):
+
+    h = mish(GN(conv3x3(x*m) + b1)) ; h = (h + temb) * m
+    h = mish(GN(conv3x3(h) + b2)) * m + (x*m  or  W_res (x*m) + b_res)
+    h = h + g * (W_o (q ctx) + b_o)           # attention, when given
+
+with GroupNorm(8) statistics either over valid frames only (`masked_stats`)
+or over the whole image (the flax `nn.GroupNorm` the module uses when
+`masked_norm` is off). `block_only` weights (no second conv) give the final
+Block2d: mish(GN(conv3x3(x*m) + b1)) * m.
+
+Layout: images (B, C, H, T) float32; the block input may come as a list of
+channel chunks (the up path's skip concatenation is never materialised).
+
+What bounds it on the H100, and what the design does about it, is in the
+note at the top of `csrc/resblock2d.cu`: the convolutions are compute-bound
+float32 work on the CUDA cores; GroupNorm's image-wide statistics are
+per-tile partial sums reduced in a second, fixed-order pass (no atomics, so
+runs are deterministic).
+
+`resblock2d` runs the plain version for tensors on the CPU and the kernels
+for tensors on a CUDA device; anything else raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from arttts_tpu_torch.ops import _build
+
+GROUPS = 8
+HEADS = 4
+DIM_HEAD = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockWeights:
+    """One ResnetBlock2d's tensors (torch layouts). `w2 is None` marks a
+    lone Block2d (`block_only`); `w_res is None` an identity residual."""
+
+    w1: torch.Tensor  # (c_out, c_in, 3, 3)
+    b1: torch.Tensor
+    gn1_w: torch.Tensor
+    gn1_b: torch.Tensor
+    w2: Optional[torch.Tensor] = None  # (c_out, c_out, 3, 3)
+    b2: Optional[torch.Tensor] = None
+    gn2_w: Optional[torch.Tensor] = None
+    gn2_b: Optional[torch.Tensor] = None
+    w_res: Optional[torch.Tensor] = None  # (c_out, c_in)
+    b_res: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnWeights:
+    """Rezero(LinearAttention2d): gain (1,), qkv (384, C), out (C, 128) + (C,)."""
+
+    gain: torch.Tensor
+    w_qkv: torch.Tensor
+    w_out: torch.Tensor
+    b_out: torch.Tensor
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.tanh(F.softplus(x))
+
+
+def frame_mask(lengths: torch.Tensor, T: int, dtype=torch.float32) -> torch.Tensor:
+    """(B,) lengths -> (B, 1, 1, T) {0, 1} mask of valid frames."""
+    t = torch.arange(T, device=lengths.device)
+    return (t[None, :] < lengths[:, None]).to(dtype)[:, None, None, :]
+
+
+def group_norm(h, m, masked_stats: bool, eps: float, weight, bias):
+    """GroupNorm(8) with one-pass statistics (E[x^2] - E[x]^2, as the JAX
+    modules compute them), over frames where `m` is 1 if `masked_stats`,
+    else over the whole image."""
+    B, C, H, T = h.shape
+    hg = h.reshape(B, GROUPS, C // GROUPS, H, T)
+    if masked_stats:
+        mg = m.reshape(B, 1, 1, 1, T)
+        count = mg.sum(dim=(2, 3, 4)) * (C // GROUPS) * H
+        s1 = (hg * mg).sum(dim=(2, 3, 4))
+        s2 = (hg * hg * mg).sum(dim=(2, 3, 4))
+    else:
+        count = float((C // GROUPS) * H * T)
+        s1 = hg.sum(dim=(2, 3, 4))
+        s2 = (hg * hg).sum(dim=(2, 3, 4))
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean * mean, min=0.0)
+    hn = (hg - mean[..., None, None, None]) * torch.rsqrt(var + eps)[..., None, None, None]
+    return hn.reshape(B, C, H, T) * weight[:, None, None] + bias[:, None, None]
+
+
+def rezero_attention_plain(x: torch.Tensor, a: AttnWeights) -> torch.Tensor:
+    """x + g * LinearAttention2d(x): per-channel softmax of k over all H*T
+    positions (padded frames included, as in the module), 4 heads of 32."""
+    B, C, H, T = x.shape
+    qkv = torch.einsum("oc,bcp->bop", a.w_qkv, x.reshape(B, C, H * T))
+    q, k, v = qkv.reshape(B, 3, HEADS, DIM_HEAD, H * T).unbind(1)
+    k = torch.softmax(k, dim=-1)
+    ctx = torch.einsum("bhdn,bhen->bhde", k, v)
+    out = torch.einsum("bhde,bhdn->bhen", ctx, q).reshape(B, HEADS * DIM_HEAD, H, T)
+    proj = torch.einsum("oc,bchw->bohw", a.w_out, out) + a.b_out[:, None, None]
+    return x + a.gain * proj
+
+
+def resblock2d_plain(
+    xs: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    temb: Optional[torch.Tensor],
+    w: BlockWeights,
+    *,
+    masked_stats: bool,
+    eps: float,
+    attn: Optional[AttnWeights] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of `resblock2d` (same arguments)."""
+    if xs[0].is_cuda:
+        resblock2d_plain.cuda_calls += 1
+    x = torch.cat(list(xs), dim=1) if len(xs) > 1 else xs[0]
+    m = frame_mask(lengths, x.shape[-1], x.dtype)
+    xm = x * m
+    h = F.conv2d(xm, w.w1, w.b1, padding=1)
+    h = mish(group_norm(h, m, masked_stats, eps, w.gn1_w, w.gn1_b))
+    if w.w2 is None:
+        return h * m
+    h = (h + temb[:, :, None, None]) * m
+    h = F.conv2d(h, w.w2, w.b2, padding=1)
+    h = mish(group_norm(h, m, masked_stats, eps, w.gn2_w, w.gn2_b)) * m
+    if w.w_res is None:
+        res = xm
+    else:
+        res = torch.einsum("oc,bchw->bohw", w.w_res, xm) + w.b_res[:, None, None]
+    y = h + res
+    return y if attn is None else rezero_attention_plain(y, attn)
+
+
+resblock2d_plain.cuda_calls = 0
+
+
+def check_operand(t: torch.Tensor, shape, device, what: str, dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if (t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != tuple(shape)
+            or t.device != device):
+        raise ValueError(
+            f"{what}: want contiguous {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device} contiguous={t.is_contiguous()}"
+        )
+
+
+def resblock2d(
+    xs: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    temb: Optional[torch.Tensor],
+    w: BlockWeights,
+    *,
+    masked_stats: bool,
+    eps: float,
+    attn: Optional[AttnWeights] = None,
+) -> torch.Tensor:
+    """One ResnetBlock2d (or lone Block2d) on (B, c_j, H, T) input chunks.
+
+    lengths: (B,) int32 valid frames; temb: (B, c_out) rows of the block's
+    time-embedding Dense (None for a lone Block2d). Returns (B, c_out, H, T).
+    """
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return resblock2d_plain(
+            xs, lengths, temb, w, masked_stats=masked_stats, eps=eps, attn=attn
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"resblock2d runs on cpu or cuda tensors, not {dev}")
+    return _resblock2d_cuda(_build.library("resblock2d"), xs, lengths, temb, w,
+                            masked_stats, eps, attn)
+
+
+resblock2d.launches = 0
+
+
+def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
+    if not 1 <= len(xs) <= 2:
+        raise ValueError("resblock2d takes one or two input chunks")
+    B, _, H, T = xs[0].shape
+    cs = [x.shape[1] for x in xs]
+    c_in = sum(cs)
+    c_out = w.w1.shape[0]
+    if c_out % 64:
+        raise ValueError(f"c_out must be a multiple of 64, got {c_out}")
+
+    def _check(t, shape, what):
+        check_operand(t, shape, xs[0].device, what)
+
+    for j, x in enumerate(xs):
+        _check(x, (B, cs[j], H, T), f"input chunk {j}")
+    check_operand(lengths, (B,), xs[0].device, "lengths", torch.int32)
+    _check(w.w1, (c_out, c_in, 3, 3), "w1")
+    for name in ("b1", "gn1_w", "gn1_b"):
+        _check(getattr(w, name), (c_out,), name)
+    block_only = w.w2 is None
+    if not block_only:
+        _check(w.w2, (c_out, c_out, 3, 3), "w2")
+        for name in ("b2", "gn2_w", "gn2_b"):
+            _check(getattr(w, name), (c_out,), name)
+        _check(temb, (B, c_out), "temb")
+        if w.w_res is None and c_in != c_out:
+            raise ValueError("identity residual needs c_in == c_out")
+        if w.w_res is not None:
+            _check(w.w_res, (c_out, c_in), "w_res")
+            _check(w.b_res, (c_out,), "b_res")
+    if attn is not None:
+        _check(attn.w_qkv, (3 * HEADS * DIM_HEAD, c_out), "w_qkv")
+        _check(attn.w_out, (c_out, HEADS * DIM_HEAD), "w_out")
+        _check(attn.b_out, (c_out,), "b_out")
+        _check(attn.gain, (1,), "gain")
+
+    p = _build.ptr
+    s = _build.stream(xs[0])
+    x0, x1 = xs[0], (xs[1] if len(xs) > 1 else None)
+    c1 = cs[1] if len(xs) > 1 else 0
+    n_tiles = lib.conv3x3_tiles(H, T)
+    new = lambda c: torch.empty((B, c, H, T), device=x0.device)  # noqa: E731
+    h = new(c_out)
+    part = torch.empty((B, c_out // 8, n_tiles, 2), device=x0.device)
+    stats = torch.empty((B, GROUPS, 2), device=x0.device)
+    resblock2d.launches += 1
+
+    def conv_norm(inputs, chans, wt, bias):
+        _build.call(lib, "conv3x3_stats", p(inputs[0]), chans[0], p(inputs[1]), chans[1],
+                    p(lengths), p(wt), p(bias), p(h), p(part), B, H, T, c_out,
+                    int(masked_stats), s)
+        _build.call(lib, "gn_stats", p(part), p(lengths), p(stats), B, c_out, n_tiles,
+                    H, T, int(masked_stats), float(eps), s)
+
+    def act(gamma, beta, tv, res, res_masked, out):
+        _build.call(lib, "gn_act", p(h), p(stats), p(gamma), p(beta), p(tv), p(res),
+                    int(res_masked), p(lengths), p(out), B, c_out, H, T, s)
+        return out
+
+    conv_norm((x0, x1), (cs[0], c1), w.w1, w.b1)
+    if block_only:
+        return act(w.gn1_w, w.gn1_b, None, None, False, new(c_out))
+    a = act(w.gn1_w, w.gn1_b, temb, None, False, new(c_out))
+    conv_norm((a, None), (c_out, 0), w.w2, w.b2)
+    if w.w_res is None:
+        res, res_masked = x0, True
+    else:
+        res, res_masked = new(c_out), False
+        _build.call(lib, "pointwise", p(x0), cs[0], p(x1), c1, p(lengths), p(w.w_res),
+                    p(w.b_res), None, None, p(res), B, c_out, H, T, s)
+    y = act(w.gn2_w, w.gn2_b, None, res, res_masked, a)  # `a` is dead: reuse it
+    if attn is None:
+        return y
+
+    P = H * T
+    hd = HEADS * DIM_HEAD
+    n_chunks = lib.attn_chunks(P)
+    qkv = new(3 * hd)
+    _build.call(lib, "pointwise", p(y), c_out, None, 0, None, p(attn.w_qkv), None, None,
+                None, p(qkv), B, 3 * hd, H, T, s)
+    kpart = torch.empty((B, hd, n_chunks, 2), device=x0.device)
+    cpart = torch.empty((B, HEADS, n_chunks, DIM_HEAD, DIM_HEAD), device=x0.device)
+    ctx = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), device=x0.device)
+    ao = new(hd)
+    _build.call(lib, "attention_core", p(qkv), p(kpart), p(cpart), p(ctx), p(ao), B, P, s)
+    out = new(c_out)
+    _build.call(lib, "pointwise", p(ao), hd, None, 0, None, p(attn.w_out), p(attn.b_out),
+                p(y), p(attn.gain), p(out), B, c_out, H, T, s)
+    return out

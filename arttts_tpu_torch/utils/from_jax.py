@@ -1,0 +1,154 @@
+"""Weight bridge: the JAX package's parameter trees (nested dicts of
+arrays) -> the port's state dicts.
+
+The port's modules carry the reference's torch state-dict names, so this is
+the exact inverse of the JAX package's converters
+(`arttts_tpu/utils/torch_convert_acoustic.py:convert_grad_tts`,
+`arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`). Layouts:
+
+  flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
+  flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
+  flax Dense kernel (in, out)          -> Linear weight (out, in)
+                                          / 1x1 conv weight (out, in, 1[, 1])
+  ConvTranspose{1,2}dTorch weight      -> kept (torch layout already)
+
+Nothing here imports JAX: the trees arrive as numpy arrays (or anything
+`numpy.asarray` takes).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv1d(sd, key, p) -> None:
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv2d(sd, key, p) -> None:
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _dense(sd, key, p, conv_dims: int = 0) -> None:
+    """Dense -> Linear (conv_dims 0) or a 1x1 conv with `conv_dims` spatial dims."""
+    w = np.asarray(p["kernel"]).T
+    sd[f"{key}.weight"] = _t(w.reshape(w.shape + (1,) * conv_dims))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _layer_norm(sd, key, p) -> None:
+    sd[f"{key}.gamma"] = _t(p["LayerNorm_0"]["scale"])
+    sd[f"{key}.beta"] = _t(p["LayerNorm_0"]["bias"])
+
+
+def encoder_state_dict(enc: Dict, prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
+    """Flax `Encoder` subtree (kind "text") -> `TextEncoder` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    p = prefix
+    sd[f"{p}emb.weight"] = _t(enc["Embed_0"]["embedding"])
+    pre = enc["ConvReluNorm_0"]
+    n = sum(1 for k in pre if k.startswith("ChannelLayerNorm_"))
+    for i in range(n):
+        _conv1d(sd, f"{p}prenet.conv_layers.{i}", pre[f"Conv_{i}"])
+        _layer_norm(sd, f"{p}prenet.norm_layers.{i}", pre[f"ChannelLayerNorm_{i}"])
+    _conv1d(sd, f"{p}prenet.proj", pre[f"Conv_{n}"])
+    tr = enc["TransformerEncoder_0"]
+    n_layers = sum(1 for k in tr if k.startswith("RelPositionMultiHeadAttention_"))
+    for i in range(n_layers):
+        a = tr[f"RelPositionMultiHeadAttention_{i}"]
+        q = f"{p}encoder.attn_layers.{i}"
+        for j, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+            _dense(sd, f"{q}.{name}", a[f"Dense_{j}"], conv_dims=1)
+        sd[f"{q}.emb_rel_k"] = _t(a["emb_rel_k"])
+        sd[f"{q}.emb_rel_v"] = _t(a["emb_rel_v"])
+        _layer_norm(sd, f"{p}encoder.norm_layers_1.{i}", tr[f"ChannelLayerNorm_{2 * i}"])
+        _layer_norm(sd, f"{p}encoder.norm_layers_2.{i}", tr[f"ChannelLayerNorm_{2 * i + 1}"])
+        _conv1d(sd, f"{p}encoder.ffn_layers.{i}.conv_1", tr[f"FFN_{i}"]["Conv_0"])
+        _conv1d(sd, f"{p}encoder.ffn_layers.{i}.conv_2", tr[f"FFN_{i}"]["Conv_1"])
+    _conv1d(sd, f"{p}proj_m", enc["proj_m"])
+    w = enc["proj_w"]
+    _conv1d(sd, f"{p}proj_w.conv_1", w["Conv_0"])
+    _layer_norm(sd, f"{p}proj_w.norm_1", w["ChannelLayerNorm_0"])
+    _conv1d(sd, f"{p}proj_w.conv_2", w["Conv_1"])
+    _layer_norm(sd, f"{p}proj_w.norm_2", w["ChannelLayerNorm_1"])
+    _conv1d(sd, f"{p}proj_w.proj", w["Conv_2"])
+    return sd
+
+
+def _block2d(sd, key, p) -> None:
+    _conv2d(sd, f"{key}.block.0", p["Conv_0"])
+    sd[f"{key}.block.1.weight"] = _t(p["GroupNorm_0"]["scale"])
+    sd[f"{key}.block.1.bias"] = _t(p["GroupNorm_0"]["bias"])
+
+
+def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
+                         num_resolutions: int = 3) -> Dict[str, torch.Tensor]:
+    """Flax `GradLogPEstimator2d` subtree -> `GradLogPEstimator2d` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    p = prefix
+    _dense(sd, f"{p}mlp.0", est["Dense_0"])
+    _dense(sd, f"{p}mlp.2", est["Dense_1"])
+    # JAX call order: downs' resnets, mid, ups' resnets; attentions likewise
+    res_keys = [f"{p}downs.{lv}.{j}" for lv in range(num_resolutions) for j in (0, 1)]
+    res_keys += [f"{p}mid_block1", f"{p}mid_block2"]
+    res_keys += [f"{p}ups.{u}.{j}" for u in range(num_resolutions - 1) for j in (0, 1)]
+    attn_keys = [f"{p}downs.{lv}.2" for lv in range(num_resolutions)] + [f"{p}mid_attn"]
+    attn_keys += [f"{p}ups.{u}.2" for u in range(num_resolutions - 1)]
+    for k, key in enumerate(res_keys):
+        r = est[f"ResnetBlock2d_{k}"]
+        _block2d(sd, f"{key}.block1", r["Block2d_0"])
+        _block2d(sd, f"{key}.block2", r["Block2d_1"])
+        _dense(sd, f"{key}.mlp.1", r["Dense_0"])
+        if "Conv_0" in r:
+            _dense(sd, f"{key}.res_conv", r["Conv_0"], conv_dims=2)
+    for k, key in enumerate(attn_keys):
+        a = est[f"LinearAttention2d_{k}"]
+        _dense(sd, f"{key}.fn.fn.to_qkv", a["Conv_0"], conv_dims=2)
+        _dense(sd, f"{key}.fn.fn.to_out", a["Conv_1"], conv_dims=2)
+        sd[f"{key}.fn.g"] = _t(est[f"Rezero_{k}"]["g"])
+    for lv in range(num_resolutions - 1):
+        _conv2d(sd, f"{p}downs.{lv}.3.conv", est[f"Downsample2d_{lv}"]["Conv_0"])
+        up = est[f"ConvTranspose2dTorch_{lv}"]
+        sd[f"{p}ups.{lv}.3.conv.weight"] = _t(up["weight"])
+        sd[f"{p}ups.{lv}.3.conv.bias"] = _t(up["bias"])
+    _block2d(sd, f"{p}final_block", est["Block2d_0"])
+    _dense(sd, f"{p}final_conv", est["Conv_0"], conv_dims=2)
+    return sd
+
+
+def grad_tts_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`GradTTSModel` params (`variables["params"]`) -> the port's
+    `GradTTSModel` state dict."""
+    sd = encoder_state_dict(params["encoder"])
+    sd.update(estimator_state_dict(params["estimator"]))
+    return sd
+
+
+def hifigan_state_dict(params: Dict, num_ups: int = 4,
+                       num_kernels: int = 3) -> Dict[str, torch.Tensor]:
+    """`HiFiGANGenerator` params -> the port's `HiFiGANGenerator` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv1d(sd, "conv_pre", params["conv_pre"])
+    _conv1d(sd, "conv_post", params["conv_post"])
+    for i in range(num_ups):
+        sd[f"ups.{i}.weight"] = _t(params[f"ups_{i}"]["weight"])
+        sd[f"ups.{i}.bias"] = _t(params[f"ups_{i}"]["bias"])
+        for j in range(num_kernels):
+            block = params[f"resblock_{i}_{j}"]
+            n = i * num_kernels + j
+            c = 0
+            while f"conv1_{c}" in block:
+                _conv1d(sd, f"resblocks.{n}.convs1.{c}", block[f"conv1_{c}"])
+                _conv1d(sd, f"resblocks.{n}.convs2.{c}", block[f"conv2_{c}"])
+                c += 1
+    return sd

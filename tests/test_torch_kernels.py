@@ -1,0 +1,193 @@
+"""The plain versions of the port's kernels (`arttts_tpu_torch/ops/
+resblock2d.py`, `ops/updown.py`) against the JAX package, on the CPU.
+
+Each plain version is what its CUDA kernel is held against on the card
+(`chip_smoke.py`), so here it is held against the flax modules the TPU
+kernels replace (`ResnetBlock2d`, `Block2d`, `Rezero(LinearAttention2d)`,
+`Downsample2d`, `ConvTranspose2dTorch`; the JAX package's own tests pin its
+Pallas kernels to those modules), plus two interpret-mode cases against the
+Pallas kernels themselves (f32 dots), one of them in the masked-statistics,
+eps 1e-6 mode no module has. Inputs are numpy draws from a fixed seed;
+tolerance atol/rtol 2e-4 (float32 both sides, sums in other orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arttts_tpu.models.convs import ConvTranspose2dTorch
+from arttts_tpu.models.unet2d import Block2d, Downsample2d, LinearAttention2d, ResnetBlock2d
+from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, resblock2d
+from arttts_tpu_torch.ops.updown import conv_transpose2d, downsample2d
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(p):  # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
+    return _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))), _t(p["bias"])
+
+
+def _block_weights(p, block_only=False):
+    b0 = p if block_only else p["Block2d_0"]
+    w1, b1 = _conv(b0["Conv_0"])
+    w = dict(w1=w1, b1=b1, gn1_w=_t(b0["GroupNorm_0"]["scale"]),
+             gn1_b=_t(b0["GroupNorm_0"]["bias"]))
+    if not block_only:
+        b1_ = p["Block2d_1"]
+        w2, b2 = _conv(b1_["Conv_0"])
+        w.update(w2=w2, b2=b2, gn2_w=_t(b1_["GroupNorm_0"]["scale"]),
+                 gn2_b=_t(b1_["GroupNorm_0"]["bias"]))
+        if "Conv_0" in p:
+            w.update(w_res=_t(np.asarray(p["Conv_0"]["kernel"]).T), b_res=_t(p["Conv_0"]["bias"]))
+    return BlockWeights(**w)
+
+
+def _attn_params(rng, C):
+    """LinearAttention2d params drawn at the module's init scale, gain 0.3."""
+    la = {"Conv_0": {"kernel": rng.standard_normal((C, 384)).astype(np.float32) / np.sqrt(C)},
+          "Conv_1": {"kernel": rng.standard_normal((128, C)).astype(np.float32) / np.sqrt(128),
+                     "bias": 0.1 * rng.standard_normal(C).astype(np.float32)}}
+    g = np.full((1,), 0.3, np.float32)
+    port = AttnWeights(gain=_t(g), w_qkv=_t(la["Conv_0"]["kernel"].T),
+                       w_out=_t(la["Conv_1"]["kernel"].T), b_out=_t(la["Conv_1"]["bias"]))
+    return la, g, port
+
+
+def _inputs(rng, B, H, T, c_in, lengths, c_t=64):
+    x = rng.standard_normal((B, H, T, c_in)).astype(np.float32)
+    mask = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)
+    temb = rng.standard_normal((B, c_t)).astype(np.float32)
+    return x, mask[:, None, :, None], temb
+
+
+def _chunks(x, c_chunks):
+    """(B, H, T, C) numpy -> list of (B, c_j, H, T) torch chunks."""
+    offs = np.cumsum((0,) + tuple(c_chunks))
+    xt = np.transpose(x, (0, 3, 1, 2))
+    return [_t(xt[:, offs[j]:offs[j + 1]]).contiguous() for j in range(len(c_chunks))]
+
+
+def _tvec(p, temb):
+    m = temb * np.tanh(np.logaddexp(0.0, temb))  # mish
+    return _t(m @ np.asarray(p["Dense_0"]["kernel"]) + np.asarray(p["Dense_0"]["bias"]))
+
+
+def _nchw(y):
+    return np.transpose(np.asarray(y), (0, 3, 1, 2))
+
+
+def _close(got, ref, tol=2e-4):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize(
+    "c_chunks,c_out,masked,lengths,attn",
+    [
+        ((2,), 64, True, [64, 41], False),         # level-1 entry: 2 planes, projection
+        ((64,), 64, False, [64, 37], False),       # identity residual, unmasked statistics
+        ((128, 128), 64, False, [64], False),      # chunked skip input, projection
+        ((64,), 64, True, [64, 50], True),         # attention fused behind the block
+        ((128,), 128, False, [64, 29], True),      # attention at C=128, unmasked statistics
+    ],
+)
+def test_resblock_plain_matches_module(c_chunks, c_out, masked, lengths, attn):
+    rng = np.random.default_rng(c_out + sum(c_chunks) + len(lengths) + attn)
+    B, H, T = len(lengths), 8, 64
+    x, mask, temb = _inputs(rng, B, H, T, sum(c_chunks), lengths)
+    mod = ResnetBlock2d(dim_out=c_out, masked_norm=masked)
+    p = mod.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(mask), jnp.asarray(temb))
+    p = jax.tree_util.tree_map(np.asarray, p["params"])
+    ref = mod.apply({"params": p}, x, mask, temb)
+    aw = None
+    if attn:
+        la, g, aw = _attn_params(rng, c_out)
+        ref = ref + g * LinearAttention2d().apply({"params": la}, ref)
+    got = resblock2d(_chunks(x, c_chunks), torch.tensor(lengths, dtype=torch.int32),
+                     _tvec(p, temb), _block_weights(p), masked_stats=masked,
+                     eps=1e-5 if masked else 1e-6, attn=aw)
+    _close(got, _nchw(ref))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_block_only_plain_matches_module(masked):
+    rng = np.random.default_rng(3 + masked)
+    lengths = [64, 45]
+    x, mask, _ = _inputs(rng, 2, 8, 64, 64, lengths)
+    mod = Block2d(dim_out=64, masked_norm=masked)
+    p = jax.tree_util.tree_map(
+        np.asarray, mod.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(mask))["params"])
+    ref = mod.apply({"params": p}, x, mask)
+    got = resblock2d(_chunks(x, (64,)), torch.tensor(lengths, dtype=torch.int32), None,
+                     _block_weights(p, block_only=True), masked_stats=masked,
+                     eps=1e-5 if masked else 1e-6)
+    _close(got, _nchw(ref))
+
+
+@pytest.mark.parametrize("C", [64, 128])
+def test_downsample_plain_matches_module(C):
+    rng = np.random.default_rng(C)
+    lengths = [32, 19]
+    x, mask, _ = _inputs(rng, 2, 8, 32, C, lengths)
+    mod = Downsample2d(C)
+    p = jax.tree_util.tree_map(np.asarray, mod.init(jax.random.PRNGKey(2), x)["params"])
+    ref = mod.apply({"params": p}, x * mask)
+    got = downsample2d(_chunks(x, (C,))[0], torch.tensor(lengths, dtype=torch.int32),
+                       *_conv(p["Conv_0"]))
+    assert tuple(got.shape) == (2, C, 4, 16)
+    _close(got, _nchw(ref))
+
+
+@pytest.mark.parametrize("C", [128, 64])
+def test_conv_transpose_plain_matches_module(C):
+    rng = np.random.default_rng(C + 1)
+    lengths = [16, 9]
+    x, mask, _ = _inputs(rng, 2, 4, 16, C, lengths)
+    mod = ConvTranspose2dTorch(C, C, 4, 2, 1)
+    p = jax.tree_util.tree_map(np.asarray, mod.init(jax.random.PRNGKey(3), x)["params"])
+    p["bias"] = 0.1 * rng.standard_normal(C).astype(np.float32)
+    ref = mod.apply({"params": p}, x * mask)
+    got = conv_transpose2d(_chunks(x, (C,))[0], torch.tensor(lengths, dtype=torch.int32),
+                           _t(p["weight"]), _t(p["bias"]))
+    assert tuple(got.shape) == (2, C, 8, 32)
+    _close(got, _nchw(ref))
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_resblock_plain_matches_pallas_interpret(wide):
+    """Against the TPU kernel itself in interpret mode with f32 dots:
+    `resblock2d_wide` at C=128 in the masked-statistics eps 1e-6 mode (the
+    v2 serving mode at buckets of 256 frames and up), and
+    `resblock2d_packed` at C=64 with eps 1e-5; both with padded frames and
+    the fused attention."""
+    from arttts_tpu.ops import resblock2d_pallas as rp
+
+    C, eps = (128, 1e-6) if wide else (64, 1e-5)
+    rng = np.random.default_rng(17 + wide)
+    B, H, T, lengths = 2, 8, 128, [128, 83]
+    x, mask, temb = _inputs(rng, B, H, T, C, lengths)
+    mod = ResnetBlock2d(dim_out=C, masked_norm=True)
+    p = jax.tree_util.tree_map(np.asarray, mod.init(
+        jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(mask), jnp.asarray(temb))["params"])
+    la, g, aw = _attn_params(rng, C)
+    tv = _tvec(p, temb)
+    lens = jnp.asarray(lengths, jnp.int32)
+    if wide:
+        out = rp.resblock2d_wide(
+            (rp.pad_wide(jnp.asarray(x)),), lens, jnp.asarray(tv.numpy()),
+            rp.pack_resblock_params_wide(p, (C,), C), c_out=C, eps=eps, interpret=True,
+            bf16=False, attn_params=rp.pack_attn_params_wide(la, g))
+        ref = rp.unpad_wide(out)
+    else:
+        out = rp.resblock2d_packed(
+            rp.split_pack_image(jnp.asarray(x)), lens,
+            jax.vmap(rp.pack_lane_vec)(jnp.asarray(tv.numpy())),
+            rp.pack_resblock_params(p, C), c_in=C, eps=eps, interpret=True, bf16=False,
+            attn_params=rp.pack_attn_params(la, g))
+        ref = rp.unpack_image(out)
+    got = resblock2d(_chunks(x, (C,)), torch.tensor(lengths, dtype=torch.int32), tv,
+                     _block_weights(p), masked_stats=True, eps=eps, attn=aw)
+    _close(got, _nchw(ref))
