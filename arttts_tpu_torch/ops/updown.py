@@ -49,13 +49,13 @@ def conv_transpose2d_plain(x, lengths, w, b):
 conv_transpose2d_plain.cuda_calls = 0
 
 
-def _operands(x, lengths, w, b, w_shape):
+def _operands(x, lengths, w, b, w_shape, c_out):
     B, _, H, T = x.shape
     dev = x.device
     check_operand(x, x.shape, dev, "x")
     check_operand(lengths, (B,), dev, "lengths", torch.int32)
     check_operand(w, w_shape, dev, "weight")
-    check_operand(b, (b.shape[0],), dev, "bias")
+    check_operand(b, (c_out,), dev, "bias")
     return B, H, T
 
 
@@ -76,7 +76,7 @@ def _downsample2d_cuda(lib, x, lengths, w, b):
     c_out, c_in = w.shape[0], x.shape[1]
     if c_out % 64:
         raise ValueError(f"output channels must be a multiple of 64, got {c_out}")
-    B, H, T = _operands(x, lengths, w, b, (c_out, c_in, 3, 3))
+    B, H, T = _operands(x, lengths, w, b, (c_out, c_in, 3, 3), c_out)
     out = torch.empty((B, c_out, (H + 1) // 2, (T + 1) // 2), device=x.device)
     downsample2d.launches += 1
     p = _build.ptr
@@ -102,7 +102,7 @@ def _conv_transpose2d_cuda(lib, x, lengths, w, b):
     c_in, c_out = w.shape[0], w.shape[1]
     if c_out % 64:
         raise ValueError(f"output channels must be a multiple of 64, got {c_out}")
-    B, H, T = _operands(x, lengths, w, b, (x.shape[1], c_out, 4, 4))
+    B, H, T = _operands(x, lengths, w, b, (x.shape[1], c_out, 4, 4), c_out)
     out = torch.empty((B, c_out, 2 * H, 2 * T), device=x.device)
     conv_transpose2d.launches += 1
     p = _build.ptr

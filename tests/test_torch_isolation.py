@@ -6,7 +6,7 @@
 - the kernel modules import without CUDA, and asking for the card where
   there is none raises instead of running on the CPU;
 - on CPU tensors the kernel wrappers run their plain versions and count
-  no launch.
+  no launch; their CUDA side checks every operand before a launch.
 """
 
 import json
@@ -102,3 +102,29 @@ def test_wrappers_take_plain_versions_only_on_cpu():
         rb.resblock2d([x.to("meta")], lens.to("meta"), None, w, masked_stats=True, eps=1e-5)
     with pytest.raises(ValueError, match="cpu or cuda"):
         updown.conv_transpose2d(x.to("meta"), lens, torch.zeros(64, 64, 4, 4), torch.zeros(64))
+
+
+def test_kernel_operands_are_checked_before_launch():
+    """The CUDA side of each wrapper validates shapes, types and contiguity
+    before any pointer reaches a kernel (checked here on CPU tensors, with
+    no library: the checks raise first)."""
+    from arttts_tpu_torch.ops import resblock2d as rb
+    from arttts_tpu_torch.ops import updown
+
+    x = torch.zeros(1, 64, 4, 8)
+    lens = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="bias"):
+        updown._downsample2d_cuda(None, x, lens, torch.zeros(64, 64, 3, 3), torch.zeros(32))
+    with pytest.raises(ValueError, match="bias"):
+        updown._conv_transpose2d_cuda(None, x, lens, torch.zeros(64, 64, 4, 4), torch.zeros(65))
+    with pytest.raises(ValueError, match="lengths"):
+        updown._downsample2d_cuda(None, x, lens.long(), torch.zeros(64, 64, 3, 3),
+                                  torch.zeros(64))
+    w = rb.BlockWeights(w1=torch.zeros(64, 64, 3, 3), b1=torch.zeros(64), gn1_w=torch.ones(64),
+                        gn1_b=torch.zeros(64), w2=torch.zeros(64, 64, 3, 3), b2=torch.zeros(64),
+                        gn2_w=torch.ones(64), gn2_b=torch.zeros(64))
+    with pytest.raises(ValueError, match="temb"):
+        rb._resblock2d_cuda(None, [x], lens, torch.zeros(1, 128), w, True, 1e-5, None)
+    with pytest.raises(ValueError, match="input chunk 0"):
+        rb._resblock2d_cuda(None, [x.transpose(2, 3)], lens, torch.zeros(1, 64), w, True,
+                            1e-5, None)
