@@ -3,10 +3,11 @@ path of `arttts_tpu/infer/sampler.py`).
 
 The JAX package traces the n-step loop into one program; here it is a
 Python loop of score evaluations, each on the hand-written kernels
-(`models/unet2d_fast.make_score_fn`). Output lengths are static frame
-buckets with masking, as there. Random draws take an explicit
-`torch.Generator` (the JAX `rng` keys); tensors keep the JAX layouts:
-mel (B, T, 80), wav (B, T*256, 1).
+(`models/unet2d_fast.make_score_fn`), and the vocoder runs its fast path
+(`models/hifigan.py:hifigan_forward_fast`, on kernels K4 and K5). Output
+lengths are static frame buckets with masking, as there. Random draws take
+an explicit `torch.Generator` (the JAX `rng` keys); tensors keep the JAX
+layouts: mel (B, T, 80), wav (B, T*256, 1).
 
 Entry points take `device` (default "cuda") and place their inputs there;
 the model and vocoder must already live on it. There is no fallback: with
@@ -20,8 +21,9 @@ from typing import Optional
 
 import torch
 
-from arttts_tpu_torch.core.device import resolve
+from arttts_tpu_torch.core.device import check_module, resolve
 from arttts_tpu_torch.models.diffusion_sde import get_noise
+from arttts_tpu_torch.models.hifigan import hifigan_forward_fast
 from arttts_tpu_torch.models.unet2d_fast import make_score_fn
 from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, sequence_mask
 
@@ -29,13 +31,6 @@ from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, seq
 def _on(device, *tensors):
     dev = resolve(device)
     return [None if t is None else torch.as_tensor(t).to(dev) for t in tensors]
-
-
-def _check_module(module, device) -> None:
-    dev = resolve(device)
-    got = next(module.parameters()).device
-    if got.type != dev.type or (dev.index is not None and got != dev):
-        raise ValueError(f"{type(module).__name__} lives on {got}, not on {dev}")
 
 
 @torch.inference_mode()
@@ -72,7 +67,7 @@ def encode_text(model, x, x_lengths, device="cuda"):
     """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
     (B,) the summed ceil of the predicted durations (picks the bucket)."""
     x, x_lengths = _on(device, x, x_lengths)
-    _check_module(model, device)
+    check_module(model, device)
     mu_x, logw, x_mask = model.encode(x, x_lengths)
     w = torch.exp(logw) * x_mask
     return mu_x, logw, x_mask, torch.ceil(w).sum(dim=(1, 2))
@@ -82,7 +77,7 @@ def encode_text(model, x, x_lengths, device="cuda"):
 def predict_lengths(model, x, x_lengths, device="cuda"):
     """Duration-only forward: w = exp(logw) * mask, (B, T_x, 1)."""
     x, x_lengths = _on(device, x, x_lengths)
-    _check_module(model, device)
+    check_module(model, device)
     _, logw, x_mask = model.encode(x, x_lengths)
     return torch.exp(logw) * x_mask
 
@@ -96,7 +91,7 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
     (B, max_frames, n_feats), masked past y_lengths."""
     mu_x, logw, x_mask, x_durations = _on(device, mu_x, logw, x_mask, x_durations)
-    _check_module(model, device)
+    check_module(model, device)
     if x_durations is not None:
         w = x_durations[:, :, None] * x_mask
     else:
@@ -119,7 +114,7 @@ def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int
                length_scale: float = 1.0, x_durations=None, device="cuda"):
     """Text ids (B, T_x) -> (mu_y, dec, attn, y_lengths)."""
     x, x_lengths = _on(device, x, x_lengths)
-    _check_module(model, device)
+    check_module(model, device)
     mu_x, logw, x_mask = model.encode(x, x_lengths)
     return synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
@@ -129,10 +124,12 @@ def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int
 
 @torch.inference_mode()
 def vocode(vocoder, mel, device="cuda"):
-    """(B, T, 80) -> (B, T*256, 1) on the module path."""
+    """(B, T, 80) -> (B, T*256, 1) on the fast path
+    (`models/hifigan.py:hifigan_forward_fast`: MRF stages on K4, stride-2
+    upsamples on K5), as the JAX package's `_vocode` runs off the CPU."""
     (mel,) = _on(device, mel)
-    _check_module(vocoder, device)
-    return vocoder(mel)
+    check_module(vocoder, device)
+    return hifigan_forward_fast(vocoder, mel)
 
 
 @torch.inference_mode()

@@ -6,7 +6,8 @@ kernels to match torch; here they are torch's own layers, weight layout
 (in, out, k[, k]) as the JAX modules store it. XLA computed these outside
 any Pallas kernel, so they stay plain PyTorch calls. (The U-Net's 4x4
 stride-2 instance runs as the hand-written kernel K3 on the serving path,
-`ops/updown.py`; this module is its plain counterpart.)
+`ops/updown.py`, and the vocoders' stride-2, k=4 instances as K5,
+`ops/upsample.py`; these modules are their plain counterparts.)
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arttts_tpu_torch_kernels"
-SOURCES = ("resblock2d", "updown")
+SOURCES = ("resblock2d", "updown", "mrf", "upsample1d")
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -54,6 +54,12 @@ SIGNATURES = {
     "updown": {
         "downsample3x3s2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "convt4x4s2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "mrf": {
+        "mrf_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
+    "upsample1d": {
+        "upsample1d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,0 +1,172 @@
+"""K4: one whole HiFi-GAN MRF stage as a hand-written CUDA kernel, with its
+plain PyTorch version.
+
+Replaces the TPU kernel `_mrf_kernel` behind
+`arttts_tpu/ops/mrf_pallas.py:mrf_stage` (:432). The function is the sum
+over a stage's branches of `models/hifigan.py:ResBlock` (or, with `film`,
+`FiLMResBlock`), divided by the branch count:
+
+    xb = x ; per round (dilation d):
+        xt = conv(k, d)(lrelu(xb)) + b1 ; xt = conv(k, 1)(lrelu(xt)) + b2
+        [xt = xt * a + b]  (FiLM, per utterance and channel)
+        xb = xb + xt
+    out = sum over branches of xb / n_branches
+
+with SAME zero padding at the tensor's own frame range (a padded bucket is
+vocoded with its zero frames, as on the module path). Layout (B, C, T)
+float32, C in {32, 64, 128}, kernel sizes 3, 7 and 11. The C=256 stage stays
+on the modules, as in the JAX package (`mrf_supported` there).
+
+The note at the top of `csrc/mrf.cu` says what bounds the kernel on the
+H100 and how it is tiled: one launch per (branch, round), each round's
+intermediate kept in shared memory, the branch sum added in a fixed order.
+
+On CPU tensors `mrf_stage` runs the plain version; on CUDA tensors the
+kernel; anything else raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from arttts_tpu_torch.ops import _build
+from arttts_tpu_torch.ops.resblock2d import check_operand
+
+LRELU_SLOPE = 0.1
+CHANNELS = (32, 64, 128)
+KERNEL_SIZES = (3, 7, 11)
+
+
+@dataclasses.dataclass(frozen=True)
+class MRFBranch:
+    """One ResBlock of a stage, its rounds stacked: conv weights in the
+    Conv1d layout (out, in, k), one per round."""
+
+    w1: torch.Tensor  # (n_rounds, C, C, k), dilation dilations[r]
+    b1: torch.Tensor  # (n_rounds, C)
+    w2: torch.Tensor  # (n_rounds, C, C, k), dilation 1
+    b2: torch.Tensor  # (n_rounds, C)
+    dilations: Tuple[int, ...]
+
+
+def _conv(m: nn.Module) -> nn.Conv1d:
+    """A ResBlock's Conv1d, or the Conv1d of a SPARC block's
+    Sequential(LeakyReLU, Conv1d)."""
+    return m[-1] if isinstance(m, nn.Sequential) else m
+
+
+def stage_weights(blocks: Sequence[nn.Module]) -> Tuple[MRFBranch, ...]:
+    """One stage's `ResBlock`/`FiLMResBlock` modules -> the branches
+    `mrf_stage` takes (the counterpart of the JAX `pack_mrf_weights`)."""
+    out = []
+    for blk in blocks:
+        c1 = [_conv(m) for m in blk.convs1]
+        c2 = [_conv(m) for m in blk.convs2]
+        out.append(MRFBranch(
+            w1=torch.stack([c.weight for c in c1]), b1=torch.stack([c.bias for c in c1]),
+            w2=torch.stack([c.weight for c in c2]), b2=torch.stack([c.bias for c in c2]),
+            dilations=tuple(c.dilation[0] for c in c1),
+        ))
+    return tuple(out)
+
+
+def mrf_supported(channels: int, kernel_sizes: Sequence[int]) -> bool:
+    """Whether K4 takes a stage of this width and these branch kernels."""
+    return channels in CHANNELS and all(k in KERNEL_SIZES for k in kernel_sizes)
+
+
+def mrf_stage_plain(x: torch.Tensor, weights: Sequence[MRFBranch],
+                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """The plain PyTorch version of `mrf_stage` (same arguments)."""
+    if x.is_cuda:
+        mrf_stage_plain.cuda_calls += 1
+    out = None
+    for j, br in enumerate(weights):
+        k = br.w1.shape[-1]
+        xb = x
+        for r, d in enumerate(br.dilations):
+            xt = F.conv1d(F.leaky_relu(xb, LRELU_SLOPE), br.w1[r], br.b1[r],
+                          padding=d * (k - 1) // 2, dilation=d)
+            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), br.w2[r], br.b2[r],
+                          padding=(k - 1) // 2)
+            if film is not None:
+                xt = xt * film[0][j, r][:, :, None] + film[1][j, r][:, :, None]
+            xb = xb + xt
+        out = xb if out is None else out + xb
+    return out / len(weights)
+
+
+mrf_stage_plain.cuda_calls = 0
+
+
+def mrf_stage(x: torch.Tensor, weights: Sequence[MRFBranch],
+              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """One whole MRF stage: (B, C, T) -> (B, C, T).
+
+    `weights`: one `MRFBranch` per branch (`stage_weights`). `film`: an
+    optional (a, b) pair, each (n_branches, n_rounds, B, C)."""
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, weights, film)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage runs on cpu or cuda tensors, not {x.device}")
+    return _mrf_stage_cuda(_build.library("mrf"), x, weights, film)
+
+
+mrf_stage.launches = 0
+mrf_stage.film_launches = 0  # the launches among them in FiLM mode
+
+
+def _mrf_stage_cuda(lib, x, weights, film):
+    if x.ndim != 3:
+        raise ValueError(f"x: want (B, C, T), got {tuple(x.shape)}")
+    B, C, T = x.shape
+    dev = x.device
+    check_operand(x, (B, C, T), dev, "x")
+    if C not in CHANNELS:
+        raise ValueError(f"channels must be one of {CHANNELS}, got {C}")
+    n_br = len(weights)
+    if n_br == 0:
+        raise ValueError("mrf_stage needs at least one branch")
+    n_rounds = len(weights[0].dilations)
+    for j, br in enumerate(weights):
+        k = br.w1.shape[-1]
+        if k not in KERNEL_SIZES:
+            raise ValueError(f"branch {j}: kernel size must be one of {KERNEL_SIZES}, got {k}")
+        if len(br.dilations) != n_rounds or min(br.dilations) < 1:
+            raise ValueError(f"branch {j}: want {n_rounds} dilations >= 1, got {br.dilations}")
+        for name in ("w1", "w2"):
+            check_operand(getattr(br, name), (n_rounds, C, C, k), dev, f"branch {j} {name}")
+        for name in ("b1", "b2"):
+            check_operand(getattr(br, name), (n_rounds, C), dev, f"branch {j} {name}")
+    if film is not None:
+        for t, name in zip(film, ("film a", "film b")):
+            check_operand(t, (n_br, n_rounds, B, C), dev, name)
+
+    p = _build.ptr
+    s = _build.stream(x)
+    out = torch.empty_like(x)
+    tmp = [torch.empty_like(x) for _ in range(min(2, n_rounds - 1))]
+    mrf_stage.launches += 1
+    mrf_stage.film_launches += film is not None
+    for j, br in enumerate(weights):
+        k = br.w1.shape[-1]
+        # (n_rounds, C_in, k, C_out): a chunk of input channels is one run
+        w1 = br.w1.permute(0, 2, 3, 1).contiguous()
+        w2 = br.w2.permute(0, 2, 3, 1).contiguous()
+        src = x
+        for r, d in enumerate(br.dilations):
+            last = r == n_rounds - 1
+            dst = out if last else tmp[r % 2]
+            fa = film[0][j, r] if film is not None else None
+            fb = film[1][j, r] if film is not None else None
+            scale = 1.0 / n_br if last and j == n_br - 1 else 1.0
+            _build.call(lib, "mrf_round", p(src), p(w1[r]), p(br.b1[r]), p(w2[r]),
+                        p(br.b2[r]), p(fa), p(fb), p(dst), B, C, k, T, d,
+                        int(last and j > 0), scale, s)
+            src = dst
+    return out

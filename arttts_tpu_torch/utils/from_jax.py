@@ -4,7 +4,8 @@ arrays) -> the port's state dicts.
 The port's modules carry the reference's torch state-dict names, so this is
 the exact inverse of the JAX package's converters
 (`arttts_tpu/utils/torch_convert_acoustic.py:convert_grad_tts`,
-`arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`). Layouts:
+`arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
+`convert_sparc_generator`, `convert_spk_sparc`). Layouts:
 
   flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
@@ -151,4 +152,38 @@ def hifigan_state_dict(params: Dict, num_ups: int = 4,
                 _conv1d(sd, f"resblocks.{n}.convs1.{c}", block[f"conv1_{c}"])
                 _conv1d(sd, f"resblocks.{n}.convs2.{c}", block[f"conv2_{c}"])
                 c += 1
+    return sd
+
+
+def sparc_state_dict(params: Dict, num_ups: int = 4, num_blocks: int = 3,
+                     num_dil: int = 3) -> Dict[str, torch.Tensor]:
+    """`SparcHiFiGANGenerator` params -> the port's `SparcHiFiGANGenerator`
+    state dict (the inverse of `convert_sparc_generator`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv1d(sd, "input_conv", params["input_conv"])
+    _conv1d(sd, "output_conv.1", params["output_conv"])
+    for i in range(num_ups):
+        sd[f"upsamples.{i}.1.weight"] = _t(params[f"upsample_{i}"]["weight"])
+        sd[f"upsamples.{i}.1.bias"] = _t(params[f"upsample_{i}"]["bias"])
+        for j in range(num_blocks):
+            block = params[f"block_{i}_{j}"]
+            n = i * num_blocks + j
+            for c in range(num_dil):
+                _conv1d(sd, f"blocks.{n}.convs1.{c}.1", block[f"conv1_{c}"])
+                _conv1d(sd, f"blocks.{n}.convs2.{c}.1", block[f"conv2_{c}"])
+                _dense(sd, f"blocks.{n}.films.{c}.0", block[f"film_{c}_0"])
+                _dense(sd, f"blocks.{n}.films.{c}.3", block[f"film_{c}_1"])
+    return sd
+
+
+def spk_sparc_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`SpkSparcHiFiGANGenerator` params -> the port's
+    `SpkSparcHiFiGANGenerator` state dict (the inverse of
+    `convert_spk_sparc`: its checkpoint's `spk_ft` and `generator` parts are
+    this dict's keys under `spk_ft.` and `generator.`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "spk_ft.spk_fc.0", params["spk_enc_0"])
+    _dense(sd, "spk_ft.spk_fc.3", params["spk_enc_1"])
+    for k, v in sparc_state_dict(params["generator"]).items():
+        sd[f"generator.{k}"] = v
     return sd

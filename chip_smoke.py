@@ -11,13 +11,18 @@ fatal on failure (exit code 1, no result line):
 2. build the hand-written kernels from `arttts_tpu_torch/csrc/` (nvcc,
    sm_90a) and print ptxas' register/spill report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes one score evaluation of the v2 serving path gives it (B=1, 80x768
-   mel, float32, TF32 off in both): K1 `resblock2d` at all 13 of its call
-   sites plus padded, unmasked-statistics and two-utterance cases, K2
-   `downsample2d` and K3 `conv_transpose2d` at both U-Net boundaries; time
-   each (CUDA events);
+   shapes the v2 serving path gives it (B=1, 80x768 mel, float32, TF32 off
+   in both): K1 `resblock2d` at all 13 of its call sites of one score
+   evaluation plus padded, unmasked-statistics and two-utterance cases, K2
+   `downsample2d` and K3 `conv_transpose2d` at both U-Net boundaries, K4
+   `mrf_stage` at the vocoder's three stages with C <= 128 plus FiLM
+   (SPARC window batches), B=2, ragged and multi-tile cases, K5
+   `upsample1d` at both stride-2 upsamples in both paddings; time each
+   (CUDA events) beside its bound, plain version and library call;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding);
+4b. hold the full-width vocoder's fast path (K4, K5) against its module
+   path at 768 frames, and time both alone at buckets 128, 384 and 768;
 5. hold a short text -> wav request on the card (kernels) against the same
    request on the CPU (plain versions) with the same weights;
 6. the main path: the full-width v2 GradTTS and HiFi-GAN from a seed serve
@@ -25,9 +30,14 @@ fatal on failure (exit code 1, no result line):
    both GroupNorm statistics modes) and one bench-shape request through
    `synthesize_to_wav` (T_x 96, durations pinned to 768 frames, 50 steps),
    with every launch counter set to 0 just before and read just after:
-   all three kernels must have run, and no plain version on the card;
+   all five kernels must have run as often as the path calls them, and no
+   plain version on the card;
 7. one more bench-shape request under `torch.profiler`: kernel time by
-   name and the card's idle share.
+   name and by the port's kernel it belongs to, and the card's idle share;
+8. the SPARC articulatory vocoder at full width from a seed, through
+   `vocode_sparc` (windowed and two-placement tracks), against
+   `vocode_chunked` over its module path, with K4's FiLM mode and K5
+   counted.
 
 Prints JSON lines; the `{"kernels": [...]}` line and the card line come
 before the last, which is `{"ok": true, "device": {...}}`.
@@ -49,6 +59,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL_KERNEL = 1e-4  # max |kernel - plain| <= TOL * max(1, max |plain|)
 TOL_SCORE = 1e-3
+TOL_VOC = 1e-3  # fast vocoder against its module path, on the wav in [-1, 1]
 TOL_WAV = 2e-3
 N_STEPS = 50
 
@@ -106,8 +117,10 @@ def main():
                 ptxas.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     emit({"build": {"seconds": round(time.perf_counter() - t0, 2), "ptxas": ptxas}})
 
+    from arttts_tpu_torch.ops import mrf as K4
     from arttts_tpu_torch.ops import resblock2d as K1
     from arttts_tpu_torch.ops import updown
+    from arttts_tpu_torch.ops import upsample as K5
 
     # ---- 3. each kernel against its plain version -------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -149,6 +162,8 @@ def main():
     def compare(kernel_fn, plain_fn):
         got, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
+        if got.shape != ref.shape:
+            fail(f"kernel output shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
         if not torch.isfinite(got).all():
             fail("kernel output is not finite")
         err = (got - ref).abs().max().item()
@@ -216,6 +231,41 @@ def main():
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms))
 
+    def k4_case(name, B, C, T, ks=(3, 7, 11), film=False, in_eval=False, n=5):
+        w = tuple(K4.MRFBranch(w1=rnd(3, C, C, k, scale=(k * C) ** -0.5), b1=rnd(3, C, scale=0.1),
+                               w2=rnd(3, C, C, k, scale=(k * C) ** -0.5), b2=rnd(3, C, scale=0.1),
+                               dilations=(1, 3, 5)) for k in ks)
+        x = rnd(B, C, T)
+        f = ((1 + rnd(len(ks), 3, B, C, scale=0.3), rnd(len(ks), 3, B, C, scale=0.1))
+             if film else None)
+        kern = lambda: K4.mrf_stage(x, w, f)  # noqa: E731
+        plain = lambda: K4.mrf_stage_plain(x, w, f)  # noqa: E731
+        err, scale = compare(kern, plain)
+        flops = 2 * 2 * C * C * B * T * 3 * sum(ks)  # two convs per round, 3 rounds
+        wbytes = sum(t.numel() for br in w for t in (br.w1, br.b1, br.w2, br.b2))
+        nbytes = 4 * (2 * B * C * T + wbytes + (2 * f[0].numel() if film else 0))
+        b_ms, b_by = bound(flops, nbytes)
+        cases.append(dict(kernel="mrf_stage", case=name, shape=[B, C, T], kernel_sizes=list(ks),
+                          film=film, in_eval=in_eval, max_abs_err=err, max_abs_ref=scale,
+                          ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n), bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None))
+
+    def k5_case(name, B, cin, cout, T, pad, outpad, in_eval=False):
+        x = rnd(B, cin, T)
+        w, b = rnd(cin, cout, 4, scale=(2 * cin) ** -0.5), rnd(cout, scale=0.1)
+        xl = torch.nn.functional.leaky_relu(x, 0.1)
+        kern = lambda: K5.upsample1d(x, w, b, 2, pad, outpad)  # noqa: E731
+        plain = lambda: K5.upsample1d_plain(x, w, b, 2, pad, outpad)  # noqa: E731
+        lib = lambda: torch.nn.functional.conv_transpose1d(xl, w, b, 2, pad, outpad)  # noqa: E731
+        err, scale = compare(kern, plain)
+        t_out = (T - 1) * 2 - 2 * pad + 4 + outpad
+        flops = 2 * 2 * cin * cout * B * t_out  # 2 of the 4 taps reach each output
+        b_ms, b_by = bound(flops, 4 * (B * cin * T + B * cout * t_out + w.numel() + b.numel()))
+        cases.append(dict(kernel="upsample1d", case=name, shape=[B, cin, cout, T],
+                          padding=[pad, outpad], in_eval=in_eval, max_abs_err=err,
+                          max_abs_ref=scale, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib)))
+
     # the 13 K1 calls of one score evaluation at 80x768 (masked statistics:
     # bucket 768 is one where the JAX package runs its TPU kernels)
     k1_case("ResnetBlock2d_0", (2,), 64, 80, 768, [768])
@@ -249,6 +299,26 @@ def main():
     updown_case("conv_transpose2d", 64, 40, 384, [384])
     updown_case("conv_transpose2d", 64, 40, 384, [351])
     updown_case("conv_transpose2d", 128, 20, 192, [97, 192])
+    # the vocoder's K4 and K5 calls of one 768-frame request (rates 8, 8, 2, 2)
+    k4_case("C=128 stage", 1, 128, 768 * 64, in_eval=True)
+    k4_case("C=64 stage", 1, 64, 768 * 128, in_eval=True)
+    k4_case("C=32 stage", 1, 32, 768 * 256, in_eval=True)
+    k5_case("128->64, mel padding (k-u)//2", 1, 128, 64, 768 * 64, 1, 0, in_eval=True)
+    k5_case("64->32, mel padding (k-u)//2", 1, 64, 32, 768 * 128, 1, 0, in_eval=True)
+    # SPARC window batches (8 windows of 576 frames), FiLM on, SPARC padding
+    # u//2 + u%2 with output padding u%2 (1 and 0 at stride 2)
+    for C, up in ((128, 64), (64, 128), (32, 256)):
+        k4_case(f"FiLM C={C}, SPARC window batch", 8, C, 576 * up, film=True, n=2)
+    k5_case("128->64, SPARC padding, window batch", 8, 128, 64, 576 * 64, 1, 0)
+    k5_case("64->32, SPARC padding, window batch", 8, 64, 32, 576 * 128, 1, 0)
+    # edges: two utterances, a ragged T, single k=11 branches over many tiles,
+    # and the tap routing at other paddings
+    k4_case("B=2", 2, 64, 24576)
+    k4_case("ragged T", 1, 32, 3001)
+    k4_case("k=11 only, 17 tiles", 1, 32, 8192, ks=(11,))
+    k4_case("k=11 only, FiLM, 35 tiles", 2, 128, 4096, ks=(11,), film=True)
+    k5_case("padding 2, output padding 1", 2, 64, 32, 1001, 2, 1)
+    k5_case("padding 0", 1, 128, 64, 999, 0, 0)
     for c in cases:
         c["ok"] = c["max_abs_err"] <= TOL_KERNEL * max(1.0, c["max_abs_ref"])
         emit({"kernel_case": c})
@@ -259,7 +329,7 @@ def main():
     # ---- 4. the score network: kernel path against the module path --------
     from arttts_tpu_torch.core.config import get_preset
     from arttts_tpu_torch.infer import sampler
-    from arttts_tpu_torch.models.hifigan import build_vocoder
+    from arttts_tpu_torch.models.hifigan import build_vocoder, hifigan_forward_fast
     from arttts_tpu_torch.models.tts import build_model
     from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
     from arttts_tpu_torch.models.unet2d_fast import make_score_fn
@@ -300,6 +370,24 @@ def main():
     if not all(c["ok"] for c in score_checks):
         fail("score network: kernel path disagrees with the module path")
 
+    # ---- 4b. the vocoder alone: fast path (K4, K5) against the module path ----
+    voc_checks = []
+    with torch.inference_mode():
+        for T in (128, 384, 768):
+            mel = rnd(1, T, F_)
+            fast = lambda: hifigan_forward_fast(vocoder, mel)  # noqa: E731
+            module = lambda: vocoder(mel)  # noqa: E731
+            got, ref = fast(), module()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            ok = (tuple(got.shape) == (1, T * 256, 1) and bool(torch.isfinite(got).all())
+                  and err <= TOL_VOC)
+            voc_checks.append(dict(frames=T, max_abs_err=err, tol=TOL_VOC, ok=ok,
+                                   fast_ms=cuda_ms(fast, n=5), module_ms=cuda_ms(module, n=5)))
+    emit({"vocoder": {"card": card, "checks": voc_checks}})
+    if not all(c["ok"] for c in voc_checks):
+        fail("vocoder: fast path disagrees with the module path")
+
     # ---- 5. a short request on the card against the CPU --------------------
     rng_text = torch.Generator().manual_seed(7)
     x_small = torch.randint(1, cfg.encoder.n_vocab, (1, 30), generator=rng_text)
@@ -335,8 +423,10 @@ def main():
                               device=dev)
     torch.cuda.synchronize()
 
-    counters = [K1.resblock2d, updown.downsample2d, updown.conv_transpose2d]
-    plains = [K1.resblock2d_plain, updown.downsample2d_plain, updown.conv_transpose2d_plain]
+    counters = [K1.resblock2d, updown.downsample2d, updown.conv_transpose2d, K4.mrf_stage,
+                K5.upsample1d]
+    plains = [K1.resblock2d_plain, updown.downsample2d_plain, updown.conv_transpose2d_plain,
+              K4.mrf_stage_plain, K5.upsample1d_plain]
     for f in counters + plains:
         setattr(f, "launches" if f in counters else "cuda_calls", 0)
     GradLogPEstimator2d.cuda_calls = 0
@@ -371,8 +461,10 @@ def main():
     if sorted(r["bucket"] for r in served[:3]) != [128, 384, 768]:
         fail(f"served buckets {[r['bucket'] for r in served[:3]]}, expected 128, 384, 768")
     n_eval = N_STEPS * len(requests)
+    # per request: 3 MRF stages with C <= 128 and 2 stride-2 upsamples
     want = {"resblock2d": 13 * n_eval, "downsample2d": 2 * n_eval,
-            "conv_transpose2d": 2 * n_eval}
+            "conv_transpose2d": 2 * n_eval, "mrf_stage": 3 * len(requests),
+            "upsample1d": 2 * len(requests)}
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     if any(plain_on_card.values()):
@@ -396,11 +488,70 @@ def main():
             by_name[a.key] = (a.self_device_time_total / 1e3, a.count)
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    # kernel time by the port's kernel it belongs to; the rest is PyTorch's
+    # own (cuDNN convolutions, GEMVs, elementwise)
+    families = {"K1 resblock2d": ("conv3x3_stats", "pointwise_kernel", "gn_stats", "gn_act",
+                                  "attn_"),
+                "K2 downsample2d": ("downsample_kernel",), "K3 conv_transpose2d": ("convt_kernel",),
+                "K4 mrf_stage": ("mrf_round_kernel",), "K5 upsample1d": ("upsample_kernel",)}
+    by_family = dict.fromkeys(list(families) + ["other"], 0.0)
+    for k, (ms, _) in by_name.items():
+        fam = [f for f, keys in families.items() if any(key in k for key in keys)]
+        by_family[fam[0] if fam else "other"] += ms
     emit({"trace": {"card": card, "request": "bench shape, 768 frames, 50 steps",
                     "wall_ms_under_profiler": wall_ms, "device_kernel_ms": busy,
                     "idle_share": (1 - busy / wall_ms) if busy else None,
+                    "kernel_ms_by_family": by_family,
                     "kernels_by_time": [{"name": k[:90], "ms": ms, "count": c}
                                         for k, (ms, c) in top]}})
+
+    # ---- 8. the SPARC articulatory vocoder ------------------------------------
+    from arttts_tpu_torch.infer.chunked import vocode_chunked, vocode_sparc
+    from arttts_tpu_torch.models.hifigan import build_sparc_vocoder
+
+    sparc = build_sparc_vocoder(device=dev, seed=2)  # 14 in, 512 ch, (8, 8, 2, 2), spk_ft 1024
+    g_cpu = torch.Generator().manual_seed(3)
+    spk_ft = torch.randn(1024, generator=g_cpu).numpy()
+
+    def track(T):
+        c = torch.randn(T, 14, generator=g_cpu)
+        c[:, 12] = 120 + 30 * c[:, 12]  # pitch in Hz
+        return c.numpy()
+
+    # warm-up of both paths at both batch shapes (allocator, cuDNN plans)
+    for T in (100, 1000):
+        vocode_sparc(sparc, track(T), spk_ft, device=dev)
+        with torch.inference_mode():
+            vocode_chunked(lambda c, s: sparc(c, s), track(T), spk=spk_ft, device=dev)
+    sparc_runs = []
+    for T, how in ((1500, "windows"), (400, "two placements")):
+        feats = track(T)
+        for f in (K4.mrf_stage, K5.upsample1d):
+            f.launches = 0
+        K4.mrf_stage.film_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = vocode_sparc(sparc, feats, spk_ft, device=dev)
+        fast_s = time.perf_counter() - t0
+        counts = dict(mrf_stage=K4.mrf_stage.launches, film=K4.mrf_stage.film_launches,
+                      upsample1d=K5.upsample1d.launches)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = vocode_chunked(lambda c, s: sparc(c, s), feats, spk=spk_ft, device=dev)
+        module_s = time.perf_counter() - t0
+        err = float(abs(wav - ref).max())
+        finite = bool(torch.isfinite(torch.from_numpy(wav)).all())
+        ok = (wav.shape == (T * 256,) and finite and float(abs(wav).max()) <= 1.0
+              and err <= TOL_VOC and counts == dict(mrf_stage=3, film=3, upsample1d=2))
+        sparc_runs.append(dict(frames=T, path=how, wav_samples=int(wav.shape[0]),
+                               max_abs_err=err, tol=TOL_VOC, launches=counts,
+                               fast_wall_s=fast_s, module_wall_s=module_s,
+                               rtf=fast_s / (T * 256 / 16000), ok=ok))
+    emit({"sparc": {"card": card, "entry": "vocode_sparc (vocode_chunked + "
+                    "spk_sparc_forward_fast), chunk 512, halo 32, win_batch 8",
+                    "runs": sparc_runs}})
+    if not all(r["ok"] for r in sparc_runs):
+        fail("SPARC: the fast path disagrees with the module path or skipped a kernel")
 
     # ---- the kernels line --------------------------------------------------
     meta = {
@@ -416,6 +567,11 @@ def main():
                              "arttts_tpu/ops/updown_pallas.py:228",
                              ["conv_transpose2d_from_real64 :561 (_convt_kernel :228)",
                               "conv_transpose2d_wide :498 (_convt_wide_kernel :437)"]),
+        "mrf_stage": ("arttts_tpu_torch/csrc/mrf.cu", "arttts_tpu/ops/mrf_pallas.py:138",
+                      ["mrf_stage :432 (_mrf_kernel :138, pallas_call :349)"]),
+        "upsample1d": ("arttts_tpu_torch/csrc/upsample1d.cu",
+                       "arttts_tpu/ops/upsample_pallas.py:103",
+                       ["upsample_packed :135 (_ups_kernel :103, pallas_call :168)"]),
     }
     kernels = []
     for name, (src, replaces, wrappers) in meta.items():
@@ -428,8 +584,11 @@ def main():
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_abs_err"] / max(1.0, c["max_abs_ref"]) for c in mine),
             "tolerance": f"max|kernel-plain| <= {TOL_KERNEL} * max(1, max|plain|)",
-            # per score evaluation: the sum over this kernel's calls at 80x768
-            "per": f"one score evaluation, B=1 80x768 ({len(ev)} calls)",
+            # the sum over this kernel's calls in one score evaluation at 80x768
+            # (K1-K3) or in one 768-frame request's vocoder (K4, K5)
+            "per": (f"one score evaluation, B=1 80x768 ({len(ev)} calls)"
+                    if name in ("resblock2d", "downsample2d", "conv_transpose2d")
+                    else f"one request's vocoder, B=1 768 frames ({len(ev)} calls)"),
             "ms": sum(c["ms"] for c in ev), "plain_ms": sum(c["plain_ms"] for c in ev),
             "bound_ms": sum(c["bound_ms"] for c in ev),
             "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],

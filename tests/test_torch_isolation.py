@@ -9,6 +9,7 @@
   no launch; their CUDA side checks every operand before a launch.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -37,6 +38,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "arttts_tpu_torch.infer.sampler" in res["imported"]
     assert "arttts_tpu_torch.ops.resblock2d" in res["imported"]
+    for mod in ("ops.mrf", "ops.upsample", "infer.chunked"):
+        assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
 
@@ -50,7 +53,7 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_kernel_modules_need_no_cuda_until_called(monkeypatch):
-    from arttts_tpu_torch.ops import _build, resblock2d, updown  # noqa: F401
+    from arttts_tpu_torch.ops import _build, mrf, resblock2d, updown, upsample  # noqa: F401
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_build, "_libs", {})
@@ -60,7 +63,7 @@ def test_kernel_modules_need_no_cuda_until_called(monkeypatch):
 
 def test_cuda_requests_raise_without_a_card(monkeypatch):
     from arttts_tpu_torch.core import config
-    from arttts_tpu_torch.infer import sampler
+    from arttts_tpu_torch.infer import chunked, sampler
     from arttts_tpu_torch.models.hifigan import build_vocoder
     from arttts_tpu_torch.models.tts import build_model
 
@@ -70,6 +73,8 @@ def test_cuda_requests_raise_without_a_card(monkeypatch):
         build_model(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_vocoder(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chunked.vocode_chunked(lambda c: c, np.zeros((10, 14), np.float32))
     small = config.ModelConfig(
         name="grad_tts", n_feats=16,
         encoder=config.EncoderConfig(kind="text", n_vocab=149, n_channels=16,
@@ -81,6 +86,14 @@ def test_cuda_requests_raise_without_a_card(monkeypatch):
         sampler.encode_text(model, x, np.array([5]))  # device defaults to "cuda"
     with pytest.raises(ValueError, match="lives on cpu"):
         sampler.encode_text(model, x, np.array([5]), device="meta")
+
+
+def _mrf_branch(C, k, dilations=(1, 3, 5)):
+    from arttts_tpu_torch.ops.mrf import MRFBranch
+
+    n = len(dilations)
+    return MRFBranch(w1=torch.zeros(n, C, C, k), b1=torch.zeros(n, C), w2=torch.zeros(n, C, C, k),
+                     b2=torch.zeros(n, C), dilations=dilations)
 
 
 def test_wrappers_take_plain_versions_only_on_cpu():
@@ -102,6 +115,22 @@ def test_wrappers_take_plain_versions_only_on_cpu():
         rb.resblock2d([x.to("meta")], lens.to("meta"), None, w, masked_stats=True, eps=1e-5)
     with pytest.raises(ValueError, match="cpu or cuda"):
         updown.conv_transpose2d(x.to("meta"), lens, torch.zeros(64, 64, 4, 4), torch.zeros(64))
+
+    from arttts_tpu_torch.ops import mrf, upsample
+
+    x1 = torch.randn(2, 32, 40, generator=g)
+    br = [_mrf_branch(32, k) for k in (3, 7, 11)]
+    w_up, b_up = torch.randn(32, 32, 4, generator=g) * 0.1, torch.zeros(32)
+    before = (mrf.mrf_stage.launches, upsample.upsample1d.launches)
+    s = mrf.mrf_stage(x1, br)
+    u = upsample.upsample1d(x1, w_up, b_up, 2, 1)
+    assert (mrf.mrf_stage.launches, upsample.upsample1d.launches) == before
+    assert s.shape == x1.shape and u.shape == (2, 32, 80)
+    assert mrf.mrf_stage_plain.cuda_calls == upsample.upsample1d_plain.cuda_calls == 0
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        mrf.mrf_stage(x1.to("meta"), br)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        upsample.upsample1d(x1.to("meta"), w_up, b_up, 2, 1)
 
 
 def test_kernel_operands_are_checked_before_launch():
@@ -128,3 +157,30 @@ def test_kernel_operands_are_checked_before_launch():
     with pytest.raises(ValueError, match="input chunk 0"):
         rb._resblock2d_cuda(None, [x.transpose(2, 3)], lens, torch.zeros(1, 64), w, True,
                             1e-5, None)
+
+    from arttts_tpu_torch.ops import mrf, upsample
+
+    x1 = torch.zeros(2, 64, 40)
+    br = [_mrf_branch(64, 3), _mrf_branch(64, 11)]
+    with pytest.raises(ValueError, match="channels"):
+        mrf._mrf_stage_cuda(None, torch.zeros(2, 48, 40), [_mrf_branch(48, 3)], None)
+    with pytest.raises(ValueError, match="kernel size"):
+        mrf._mrf_stage_cuda(None, x1, [_mrf_branch(64, 5)], None)
+    with pytest.raises(ValueError, match="branch 1 w2"):
+        mrf._mrf_stage_cuda(None, x1, [br[0], dataclasses.replace(
+            br[1], w2=torch.zeros(3, 64, 64, 3))], None)
+    with pytest.raises(ValueError, match="dilations"):
+        mrf._mrf_stage_cuda(None, x1, [br[0], _mrf_branch(64, 7, (1, 3))], None)
+    with pytest.raises(ValueError, match="film a"):
+        mrf._mrf_stage_cuda(None, x1, br, (torch.zeros(2, 3, 1, 64), torch.zeros(2, 3, 2, 64)))
+    with pytest.raises(ValueError, match="x"):
+        mrf._mrf_stage_cuda(None, x1.transpose(1, 2).contiguous().transpose(1, 2), br, None)
+    w_up = torch.zeros(64, 32, 4)
+    with pytest.raises(ValueError, match="bias"):
+        upsample._upsample1d_cuda(None, x1, w_up, torch.zeros(64), 2, 1, 0)
+    with pytest.raises(ValueError, match="stride 2, kernel 4"):
+        upsample._upsample1d_cuda(None, x1, torch.zeros(64, 32, 16), torch.zeros(32), 8, 4, 0)
+    with pytest.raises(ValueError, match="output_padding"):
+        upsample._upsample1d_cuda(None, x1, w_up, torch.zeros(32), 2, 1, 2)
+    with pytest.raises(ValueError, match="weight"):
+        upsample._upsample1d_cuda(None, x1, torch.zeros(32, 32, 4), torch.zeros(32), 2, 1, 0)
