@@ -1,0 +1,182 @@
+"""Host-side batching into bucketed, padded batches (the port's own copy of
+`arttts_tpu/data/batching.py`).
+
+Batches pad to a small set of static buckets (text and frame axes
+independently), as in the JAX package. Length-grouped ordering follows the
+reference samplers: shuffle mega-batches of batch_size * mult, sort by
+length inside, emit the longest batch first (an out-of-memory error shows
+at once). Batches are numpy arrays; the trainer moves them to the card.
+
+Multi-host row slicing and language upsampling are not ported yet
+(ROADMAP A13): asking for them raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from arttts_tpu_torch.ops.shape import fix_len_compatibility
+
+DEFAULT_TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
+DEFAULT_FRAME_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1536, 2048)
+
+
+def pick_bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return fix_len_compatibility(n)
+
+
+def pad_batch(
+    items: List[Dict[str, np.ndarray]],
+    text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
+    frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
+    min_frames: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Zero-pad a list of {"x", "y"} items into one dense batch: x (T_x,)
+    symbol ids, y (T_y, C) float. `min_frames` lets training guarantee
+    T_y >= out_size for the segment cut. (The JAX package's trait inputs
+    and speaker and duration fields come with ROADMAP A8.)"""
+    B = len(items)
+    x_lens = np.array([it["x"].shape[0] for it in items], np.int32)
+    y_lens = np.array([it["y"].shape[0] for it in items], np.int32)
+    T_x = pick_bucket(int(x_lens.max()), text_buckets)
+    frames = int(y_lens.max()) if min_frames is None else max(int(y_lens.max()), min_frames)
+    T_y = pick_bucket(fix_len_compatibility(frames), frame_buckets)
+
+    x = np.zeros((B, T_x), dtype=items[0]["x"].dtype)
+    y = np.zeros((B, T_y, items[0]["y"].shape[1]), dtype=np.float32)
+    for i, it in enumerate(items):
+        x[i, : x_lens[i]] = it["x"]
+        y[i, : y_lens[i]] = it["y"]
+    return {"x": x, "x_lengths": x_lens, "y": y, "y_lengths": y_lens}
+
+
+class BucketBatcher:
+    """Length-grouped batch index generator.
+
+    Shuffle the indices, split them into mega-batches of
+    batch_size * mega_batch_mult, sort each by length, longest first, then
+    move the globally longest batch to the front. A last partial batch is
+    dropped."""
+
+    def __init__(self, lengths: Sequence[int], batch_size: int, shuffle: bool = True,
+                 seed: int = 37):
+        self.lengths = np.asarray(lengths)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.mega_batch_mult = min(len(lengths) // (batch_size * 4), 50) or 1
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        n = len(self.lengths)
+        rng = np.random.default_rng(self.seed + self.epoch)
+        order = rng.permutation(n) if self.shuffle else np.arange(n)
+
+        mega = self.batch_size * self.mega_batch_mult
+        grouped: List[np.ndarray] = []
+        for i in range(0, n, mega):
+            chunk = order[i : i + mega]
+            chunk = chunk[np.argsort(-self.lengths[chunk], kind="stable")]
+            grouped.append(chunk)
+        indices = np.concatenate(grouped) if grouped else np.empty(0, np.int64)
+
+        batches = [
+            indices[i : i + self.batch_size]
+            for i in range(0, len(indices), self.batch_size)
+        ]
+        if batches and len(batches[-1]) < self.batch_size:
+            batches = batches[:-1]
+        if len(batches) > 1:
+            longest = max(
+                range(len(batches)), key=lambda b: self.lengths[batches[b]].max()
+            )
+            batches[0], batches[longest] = batches[longest], batches[0]
+        yield from batches
+
+    def __len__(self) -> int:
+        return len(self.lengths) // self.batch_size
+
+
+class DataLoader:
+    """Dataset + BucketBatcher + pad_batch. The dataset is any object with
+    `__len__`, `__getitem__` -> {"x", "y"} and `lengths()`.
+
+    Upcoming batches are assembled on a background thread, `prefetch` at
+    most ahead (a bounded queue), so the host's batching overlaps the
+    card's steps."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 37,
+        min_frames: Optional[int] = None,
+        num_hosts: int = 1,
+        prefetch: int = 2,
+        language_upsample: Optional[float] = None,
+    ):
+        if num_hosts > 1:
+            raise NotImplementedError("multi-host batching is not ported yet: ROADMAP A13")
+        if language_upsample is not None:
+            raise NotImplementedError("language upsampling is not ported yet: ROADMAP A13")
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        self.dataset = dataset
+        self.batcher = BucketBatcher(dataset.lengths(), batch_size, shuffle=shuffle, seed=seed)
+        self.min_frames = min_frames
+        self.prefetch = prefetch
+
+    def set_epoch(self, epoch: int):
+        self.batcher.set_epoch(epoch)
+
+    def _make_batch(self, idx):
+        return pad_batch([self.dataset[int(i)] for i in idx], min_frames=self.min_frames)
+
+    def __iter__(self):
+        import queue
+        import threading
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        _END = object()
+
+        def producer():
+            try:
+                for idx in self.batcher:
+                    if stop.is_set():
+                        return
+                    q.put(self._make_batch(idx))
+            except Exception as e:  # surface worker errors to the consumer
+                q.put(e)
+                return
+            q.put(_END)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:  # also when the consumer stops early: free a producer blocked on put
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    t.join(0.01)
+
+    def __len__(self):
+        return len(self.batcher)

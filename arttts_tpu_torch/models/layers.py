@@ -5,7 +5,11 @@ multiplied in where the JAX modules multiply them. Parameter names are the
 reference glow-tts state-dict names (`conv_layers.{i}`, `norm_layers.{i}`
 with `gamma`/`beta`, `attn_layers.{i}.conv_q`, ...), which
 `arttts_tpu/utils/torch_convert_acoustic.py:convert_encoder` reads.
-Inference only: dropout is the identity.
+
+Dropout acts where the JAX modules apply `nn.Dropout`, and only in training
+mode (`module.train()`): its masks come from the `torch.Generator` passed
+down the forward calls, never from the global generator. In eval mode every
+forward is the same arithmetic as without dropout.
 """
 
 from __future__ import annotations
@@ -16,6 +20,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's `nn.Dropout`: keep with probability 1 - p
+    and scale what is kept by 1 / (1 - p). The identity in eval mode or at
+    p = 0; in training it draws its mask from `generator`."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ChannelLayerNorm(nn.Module):
@@ -35,8 +52,10 @@ class ChannelLayerNorm(nn.Module):
 class ConvReluNorm(nn.Module):
     """Masked conv prenet with a zero-initialised residual projection."""
 
-    def __init__(self, in_channels, hidden_channels, out_channels, kernel_size=5, n_layers=3):
+    def __init__(self, in_channels, hidden_channels, out_channels, kernel_size=5, n_layers=3,
+                 p_dropout: float = 0.5):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv_layers = nn.ModuleList(
             nn.Conv1d(in_channels if i == 0 else hidden_channels, hidden_channels,
                       kernel_size, padding=kernel_size // 2)
@@ -47,18 +66,20 @@ class ConvReluNorm(nn.Module):
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         h = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             h = torch.relu(norm(conv(h * x_mask)))
+            h = dropout(h, self.p_dropout, self.training, generator)
         return (x + self.proj(h)) * x_mask
 
 
 class DurationPredictor(nn.Module):
     """Two masked convs with ReLU + LayerNorm, then a 1-channel projection."""
 
-    def __init__(self, in_channels, filter_channels, kernel_size=3):
+    def __init__(self, in_channels, filter_channels, kernel_size=3, p_dropout: float = 0.1):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
         self.norm_1 = ChannelLayerNorm(filter_channels)
         self.conv_2 = nn.Conv1d(filter_channels, filter_channels, kernel_size,
@@ -66,9 +87,11 @@ class DurationPredictor(nn.Module):
         self.norm_2 = ChannelLayerNorm(filter_channels)
         self.proj = nn.Conv1d(filter_channels, 1, 1)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         h = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
+        h = dropout(h, self.p_dropout, self.training, generator)
         h = self.norm_2(torch.relu(self.conv_2(h * x_mask)))
+        h = dropout(h, self.p_dropout, self.training, generator)
         return self.proj(h * x_mask) * x_mask
 
 
@@ -92,8 +115,10 @@ class RelPositionMultiHeadAttention(nn.Module):
     """Self-attention with a windowed relative-position bias shared by the
     heads (window 4); out-of-window offsets contribute zero."""
 
-    def __init__(self, channels, out_channels, n_heads, window_size: Optional[int] = 4):
+    def __init__(self, channels, out_channels, n_heads, window_size: Optional[int] = 4,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.n_heads = n_heads
         self.k_channels = channels // n_heads
         self.window_size = window_size
@@ -117,7 +142,7 @@ class RelPositionMultiHeadAttention(nn.Module):
         padded = F.pad(emb, (0, 0, pad, pad))
         return padded[:, start:start + 2 * length - 1]
 
-    def forward(self, x, attn_mask=None):
+    def forward(self, x, attn_mask=None, generator=None):
         B, C, L = x.shape
         H, D = self.n_heads, self.k_channels
 
@@ -133,6 +158,7 @@ class RelPositionMultiHeadAttention(nn.Module):
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
         p_attn = torch.softmax(scores, dim=-1)
+        p_attn = dropout(p_attn, self.p_dropout, self.training, generator)
         out = p_attn @ v
         if self.window_size is not None:
             rel_v = self._expand_rel(self.emb_rel_v, L)
@@ -143,14 +169,17 @@ class RelPositionMultiHeadAttention(nn.Module):
 class FFN(nn.Module):
     """Masked two-conv feed-forward."""
 
-    def __init__(self, in_channels, out_channels, filter_channels, kernel_size=3):
+    def __init__(self, in_channels, out_channels, filter_channels, kernel_size=3,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
         self.conv_2 = nn.Conv1d(filter_channels, out_channels, kernel_size,
                                 padding=kernel_size // 2)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         h = torch.relu(self.conv_1(x * x_mask))
+        h = dropout(h, self.p_dropout, self.training, generator)
         return self.conv_2(h * x_mask) * x_mask
 
 
@@ -158,24 +187,27 @@ class TransformerEncoder(nn.Module):
     """Post-norm transformer stack with relative-position attention."""
 
     def __init__(self, hidden_channels, filter_channels, n_heads, n_layers, kernel_size=3,
-                 window_size: Optional[int] = 4):
+                 window_size: Optional[int] = 4, p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.attn_layers = nn.ModuleList(
-            RelPositionMultiHeadAttention(hidden_channels, hidden_channels, n_heads, window_size)
+            RelPositionMultiHeadAttention(hidden_channels, hidden_channels, n_heads, window_size,
+                                          p_dropout)
             for _ in range(n_layers)
         )
         self.norm_layers_1 = nn.ModuleList(ChannelLayerNorm(hidden_channels) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size)
+            FFN(hidden_channels, hidden_channels, filter_channels, kernel_size, p_dropout)
             for _ in range(n_layers)
         )
         self.norm_layers_2 = nn.ModuleList(ChannelLayerNorm(hidden_channels) for _ in range(n_layers))
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         attn_mask = x_mask[:, :, :, None] * x_mask[:, :, None, :]  # (B, 1, L, L)
+        p, on = self.p_dropout, self.training
         for attn, n1, ffn, n2 in zip(self.attn_layers, self.norm_layers_1, self.ffn_layers,
                                      self.norm_layers_2):
             x = x * x_mask
-            x = n1(x + attn(x, attn_mask))
-            x = n2(x + ffn(x, x_mask))
+            x = n1(x + dropout(attn(x, attn_mask, generator), p, on, generator))
+            x = n2(x + dropout(ffn(x, x_mask, generator), p, on, generator))
         return x * x_mask

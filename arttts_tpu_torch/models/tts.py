@@ -2,8 +2,10 @@
 for the single-speaker text encoder and the 2D U-Net decoder).
 
 The module holds the parameters and the submodule forwards; sampling is
-`arttts_tpu_torch/infer/sampler.py`. State-dict names are the reference's:
-`encoder.*` and `decoder.estimator.*`.
+`arttts_tpu_torch/infer/sampler.py`, the training loss
+`arttts_tpu_torch/train/losses.py` (in training mode, with the encoder's
+dropout drawn from the generator `encode` is given). State-dict names are
+the reference's: `encoder.*` and `decoder.estimator.*`.
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ class GradTTSModel(nn.Module):
         self.encoder = TextEncoder(config.encoder, config.n_feats)
         self.decoder = Diffusion(config)
 
-    def encode(self, x, x_lengths):
-        """(mu_x (B, T, F), logw (B, T, 1), x_mask (B, T, 1))."""
-        return self.encoder(x, x_lengths)
+    def encode(self, x, x_lengths, generator=None):
+        """(mu_x (B, T, F), logw (B, T, 1), x_mask (B, T, 1)); `generator`
+        draws the dropout masks in training mode."""
+        return self.encoder(x, x_lengths, generator)
 
     def estimate_noise(self, xt, mask, mu, t):
         """Score-network forward on the module path (B, T, F)."""
@@ -52,7 +55,8 @@ class GradTTSModel(nn.Module):
 
 def build_model(config: ModelConfig, device="cuda", seed: int = 0) -> GradTTSModel:
     """A GradTTSModel with random weights drawn from `seed` (on the CPU, so
-    the weights do not depend on the device), moved to `device`, in eval mode."""
+    the weights do not depend on the device), moved to `device`, in eval mode
+    (serving); the trainer switches it to training mode."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = GradTTSModel(config)

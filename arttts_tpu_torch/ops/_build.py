@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arttts_tpu_torch_kernels"
-SOURCES = ("resblock2d", "updown", "mrf", "upsample1d")
+SOURCES = ("resblock2d", "updown", "mrf", "upsample1d", "mas")
 NVCC_FLAGS = (
     "-O3",
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -60,6 +60,9 @@ SIGNATURES = {
     },
     "upsample1d": {
         "upsample1d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mas": {
+        "mas_path": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

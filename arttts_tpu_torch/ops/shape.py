@@ -29,3 +29,9 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
     prev = torch.nn.functional.pad(path, (0, 0, 1, 0))[:, :-1]
     return (path - prev) * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """MSE between log-durations, normalised by the total token count."""
+    return torch.sum((logw - logw_hat) ** 2) / torch.sum(lengths)

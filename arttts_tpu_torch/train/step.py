@@ -1,0 +1,84 @@
+"""One training step (port of `arttts_tpu/train/step.py`).
+
+The JAX package jits the whole step: encoder forward, MAS, segment cut,
+U-Net forward and backward, per-submodule clip, Adam. Here the same step
+runs eagerly: autograd differentiates the module path (`models/encoder.py`,
+`models/unet2d.py`), exactly the functions the JAX step differentiates,
+and MAS runs on kernel K6. No kernel of this path needs a backward: MAS is
+outside the gradient, and the serving kernels K1-K5 are not on it.
+
+The metrics stay on the device: nothing in a step waits for the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from arttts_tpu_torch.train.losses import grad_tts_loss
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (`optax.global_norm`)."""
+    return torch.sqrt(sum(torch.sum(g**2) for g in tensors))
+
+
+def per_submodule_clip(model: torch.nn.Module, max_norm: float) -> None:
+    """Clip the gradients of each top-level submodule (the port's `encoder`
+    and `decoder`) to global norm `max_norm`, in place, with the scale
+    min(1, max_norm / (norm + 1e-6)): the reference clips its encoder and
+    decoder separately, never with one global clip."""
+    for child in model.children():
+        grads = [p.grad for p in child.parameters() if p.grad is not None]
+        if grads:
+            scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+            for g in grads:
+                g.mul_(scale)
+
+
+def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.Adam:
+    """Adam with `optax.adam`'s defaults (betas 0.9, 0.999; eps 1e-8)."""
+    return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], out_size: Optional[int],
+               grad_clip_norm: float = 1.0) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a batch of tensors on the model's device
+    ({"x", "x_lengths", "y", "y_lengths"}; with "pinned_t", "pinned_z",
+    "pinned_offsets" the loss's draws are those). Puts the model in training
+    mode. Returns the three loss parts, `total_loss` and `grad_norm` (of the
+    unclipped gradients), as device scalars."""
+    model.train()
+    pinned = None
+    if "pinned_t" in batch:
+        pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
+    optimizer.zero_grad(set_to_none=True)
+    total, parts = grad_tts_loss(model, generator, batch["x"], batch["x_lengths"], batch["y"],
+                                 batch["y_lengths"], out_size=out_size, pinned=pinned)
+    total.backward()
+    grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+    per_submodule_clip(model, grad_clip_norm)
+    optimizer.step()
+    metrics = {k: v.detach() for k, v in parts.items()}
+    metrics["total_loss"] = total.detach()
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+    """Validation loss on the full sequences (no segment cut), the encoder
+    deterministic, no gradient. The model's mode is restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        total, parts = grad_tts_loss(model, generator, batch["x"], batch["x_lengths"],
+                                     batch["y"], batch["y_lengths"], out_size=None)
+    finally:
+        model.train(was_training)
+    metrics = dict(parts)
+    metrics["total_loss"] = total
+    return metrics

@@ -1,0 +1,202 @@
+"""Config-driven trainer (port of `arttts_tpu/train/trainer.py` for the
+GradTTS family): the object a training command line builds.
+
+The epoch loop stays on the host; each step runs on the card
+(`train/step.py`, MAS on kernel K6). Per epoch: scalar logging, periodic
+validation, synthesis samples (with a writer), early stopping, and
+`grad_{epoch}` / `grad_best` / `grad_final` checkpoints that include the
+optimizer state. Any object with `__len__`, `__getitem__` -> {"x", "y"}
+and `lengths()` serves as a dataset.
+
+With `steps_per_dispatch > 1` the JAX package scans K steps in one launch;
+its own tests hold that the same trajectory as K sequential steps, and here
+every batch takes its step in turn. Multi-host data parallelism waits for
+ROADMAP A13.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from arttts_tpu_torch.core.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from arttts_tpu_torch.core.config import ExperimentConfig
+from arttts_tpu_torch.core.device import resolve
+from arttts_tpu_torch.data.batching import DataLoader
+from arttts_tpu_torch.models.tts import build_model
+from arttts_tpu_torch.ops.shape import fix_len_compatibility
+from arttts_tpu_torch.train.losses import loss_for_model
+from arttts_tpu_torch.train.step import eval_step, make_optimizer, train_step
+from arttts_tpu_torch.utils.early_stopping import EarlyStopping
+
+log = logging.getLogger("arttts_tpu_torch.train")
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: ExperimentConfig,
+        train_dataset,
+        valid_dataset=None,
+        log_dir: Optional[str] = None,
+        tb_writer=None,
+        device="cuda",
+    ):
+        """`tb_writer`: a TensorBoard-style writer (`add_scalar`,
+        `add_image`), or None for no logging there. The model is built from
+        `config.train.random_seed` on `device`."""
+        loss_for_model(config.model.name)  # raises for a family not ported yet
+        self.config = config
+        self.device = resolve(device)
+        t = config.train
+        self.model = build_model(config.model, device=self.device, seed=t.random_seed).train()
+        self.optimizer = make_optimizer(self.model, t.learning_rate)
+        self.log_dir = Path(log_dir or t.log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.tb = tb_writer
+        self.train_loader = DataLoader(train_dataset, batch_size=t.batch_size,
+                                       seed=t.random_seed, min_frames=t.out_size)
+        self.valid_loader = (
+            DataLoader(valid_dataset, batch_size=t.batch_size, shuffle=False,
+                       min_frames=t.out_size)
+            if valid_dataset is not None else None
+        )
+        self.valid_dataset = valid_dataset
+        # every draw of training (dropout, segment offsets, t, z)
+        self.generator = torch.Generator(device=self.device).manual_seed(t.random_seed)
+        self.early_stopping = EarlyStopping(patience=t.patience, step_size=t.save_every)
+        self.start_epoch = 1
+        n_params = sum(p.numel() for p in self.model.parameters())
+        log.info("Total parameters: %.2fm", n_params / 1e6)
+
+    def _on_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    def resume(self, ckpt_path: Optional[str] = None) -> int:
+        """Restore the weights, optimizer state and early stopping; returns
+        the epoch to start from."""
+        path = ckpt_path or latest_checkpoint(str(self.log_dir))
+        if path is None:
+            return 1
+        restored = load_checkpoint(path)
+        self.model.load_state_dict(restored["model"])
+        self.optimizer.load_state_dict(restored["optimizer"])
+        if "early_stop" in restored["extra"]:
+            self.early_stopping = EarlyStopping.from_state_dict(restored["extra"]["early_stop"])
+        self.start_epoch = restored["extra"].get("epoch", restored["step"]) + 1
+        log.info("Resumed from %s at epoch %d", path, self.start_epoch)
+        return self.start_epoch
+
+    def _save(self, name: str, epoch: int) -> None:
+        extra = {"epoch": epoch, "early_stop": self.early_stopping.state_dict()}
+        save_checkpoint(str(self.log_dir), name, self.model.state_dict(),
+                        self.optimizer.state_dict(), epoch, extra)
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        self.train_loader.set_epoch(epoch)
+        t = self.config.train
+        agg: Dict[str, list] = {}
+        for batch in self.train_loader:
+            metrics = train_step(self.model, self.optimizer, self._on_device(batch),
+                                 self.generator, t.out_size, t.grad_clip_norm)
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(v)
+        # one wait for the card per epoch
+        out = {k: float(torch.stack(vs).mean()) for k, vs in agg.items()}
+        if self.tb:
+            for k, v in out.items():
+                self.tb.add_scalar(f"training/{k}", v, epoch)
+        return out
+
+    def validate(self, epoch: int) -> Dict[str, float]:
+        """Validation losses on full sequences; the same draws every call."""
+        if self.valid_loader is None:
+            return {}
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        agg: Dict[str, list] = {}
+        for batch in self.valid_loader:
+            for k, v in eval_step(self.model, self._on_device(batch), generator).items():
+                agg.setdefault(k, []).append(v)
+        out = {k: float(torch.stack(vs).mean()) for k, vs in agg.items()}
+        if self.tb:
+            for k, v in out.items():
+                self.tb.add_scalar(f"validation/{k}", v, epoch)
+        return out
+
+    def synthesize_samples(self, epoch: int, n_timesteps: int = 50) -> None:
+        """Synthesise the first `test_size` validation items and log the
+        generated mel and the alignment as images scaled to [0, 1] (the JAX
+        trainer's plots and DTW score wait for ROADMAP A11)."""
+        if self.valid_dataset is None or self.tb is None:
+            return
+        from arttts_tpu_torch.infer.sampler import frame_bucket, synthesize
+
+        n = min(self.config.train.test_size, len(self.valid_dataset))
+        self.model.eval()
+        try:
+            for i in range(n):
+                item = self.valid_dataset[i]
+                x = np.asarray(item["x"])[None]
+                max_frames = frame_bucket(
+                    fix_len_compatibility(max(64, 2 * np.asarray(item["y"]).shape[0])))
+                _, dec, attn, y_len = synthesize(
+                    self.model, self.generator, x, np.array([x.shape[1]], np.int32),
+                    n_timesteps=n_timesteps, max_frames=int(max_frames), device=self.device)
+                L = int(y_len[0])
+                for name, img in (("generated_dec", dec[0, :L].T), ("alignment", attn[0, :, :L])):
+                    img = img.float().cpu()
+                    img = (img - img.min()) / (img.max() - img.min() + 1e-8)
+                    self.tb.add_image(f"image_{i}/{name}", img[None].numpy(), epoch)
+        finally:
+            self.model.train()
+
+    # ------------------------------------------------------------------
+    def fit(self, n_epochs: Optional[int] = None) -> Dict[str, float]:
+        t = self.config.train
+        n_epochs = n_epochs or t.n_epochs
+        last_metrics: Dict[str, float] = {}
+        for epoch in range(self.start_epoch, n_epochs + 1):
+            t0 = time.time()
+            train_metrics = self.train_epoch(epoch)
+            last_metrics = train_metrics
+            log.info(
+                "epoch %d: loss=%.4f (dur=%.4f prior=%.4f diff=%.4f) %.1fs",
+                epoch,
+                train_metrics.get("total_loss", float("nan")),
+                train_metrics.get("dur_loss", float("nan")),
+                train_metrics.get("prior_loss", float("nan")),
+                train_metrics.get("diff_loss", float("nan")),
+                time.time() - t0,
+            )
+            with open(self.log_dir / "train.log", "a") as f:
+                f.write(f"{epoch}\t{train_metrics}\n")
+
+            val_metrics: Dict[str, float] = {}
+            if epoch % t.val_every == 0:
+                val_metrics = self.validate(epoch)
+                with open(self.log_dir / "val.log", "a") as f:
+                    f.write(f"{epoch}\t{val_metrics}\n")
+
+            if epoch % t.save_every == 0:
+                self.synthesize_samples(epoch)
+                # without a validation set, early stopping and grad_best
+                # follow the training losses
+                ref = val_metrics or train_metrics
+                losses = [ref.get(k, float("inf"))
+                          for k in ("prior_loss", "diff_loss", "dur_loss", "total_loss")]
+                _, improved = self.early_stopping.step(losses)
+                self._save(f"grad_{epoch}", epoch)
+                if improved:
+                    self._save("grad_best", epoch)
+                if self.early_stopping.should_stop:
+                    log.info("Early stopping at epoch %d", epoch)
+                    break
+        self._save("grad_final", n_epochs)
+        return last_metrics

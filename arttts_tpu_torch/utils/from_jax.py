@@ -13,6 +13,10 @@ the exact inverse of the JAX package's converters
                                           / 1x1 conv weight (out, in, 1[, 1])
   ConvTranspose{1,2}dTorch weight      -> kept (torch layout already)
 
+A gradient tree has the parameter tree's structure, so the same functions
+map it. `adam_state_from_jax` carries the optimizer state of a run the JAX
+package started, so the port can continue it.
+
 Nothing here imports JAX: the trees arrive as numpy arrays (or anything
 `numpy.asarray` takes).
 """
@@ -187,3 +191,25 @@ def spk_sparc_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     for k, v in sparc_state_dict(params["generator"]).items():
         sd[f"generator.{k}"] = v
     return sd
+
+
+def adam_state_from_jax(opt_state, model: torch.nn.Module, learning_rate: float) -> Dict:
+    """The JAX training state's optimizer state (`optax.chain(clip,
+    adam(learning_rate))` of `arttts_tpu/train/step.py:make_optimizer`) ->
+    a `torch.optim.Adam` state dict for `model`'s parameters (the port's
+    `train/step.py:make_optimizer`): step = the optax count, exp_avg = mu,
+    exp_avg_sq = nu. Both packages then take the same next step."""
+    adam = opt_state[1][0]  # chain(clip: EmptyState, adam: (ScaleByAdamState, EmptyState))
+    if not all(hasattr(adam, k) for k in ("count", "mu", "nu")):
+        raise ValueError(f"want optax's Adam state at opt_state[1][0], got {type(adam)}")
+    mu, nu = grad_tts_state_dict(adam.mu), grad_tts_state_dict(adam.nu)
+    step = float(np.asarray(adam.count))
+    template = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8).state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    template["state"] = {
+        i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": mu[n],
+            "exp_avg_sq": nu[n]}
+        for i, n in enumerate(names)
+    }
+    return template

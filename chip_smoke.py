@@ -8,8 +8,8 @@ fatal on failure (exit code 1, no result line):
 
 1. environment: the card (`nvidia-smi` name and power limit), torch/CUDA
    versions, whether nvcc and triton are present;
-2. build the hand-written kernels from `arttts_tpu_torch/csrc/` (nvcc,
-   sm_90a) and print ptxas' register/spill report;
+2. build the six hand-written kernels from `arttts_tpu_torch/csrc/` (nvcc,
+   sm_90a, one process per source) and print ptxas' register/spill report;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the v2 serving path gives it (B=1, 80x768 mel, float32, TF32 off
    in both): K1 `resblock2d` at all 13 of its call sites of one score
@@ -17,8 +17,11 @@ fatal on failure (exit code 1, no result line):
    `downsample2d` and K3 `conv_transpose2d` at both U-Net boundaries, K4
    `mrf_stage` at the vocoder's three stages with C <= 128 plus FiLM
    (SPARC window batches), B=2, ragged and multi-tile cases, K5
-   `upsample1d` at both stride-2 upsamples in both paddings; time each
-   (CUDA events) beside its bound, plain version and library call;
+   `upsample1d` at both stride-2 upsamples in both paddings; and K6
+   `maximum_path` (MAS) at the training bucket (B=16, 192 x 1024, ragged),
+   (1, 1), T_y = T_x, T_x > 1024 and a case of ties, bit for bit against
+   its plain version and the NumPy oracle; time each (CUDA events) beside
+   its bound, plain version and library call;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding);
 4b. hold the full-width vocoder's fast path (K4, K5) against its module
@@ -37,12 +40,21 @@ fatal on failure (exit code 1, no result line):
 8. the SPARC articulatory vocoder at full width from a seed, through
    `vocode_sparc` (windowed and two-placement tracks), against
    `vocode_chunked` over its module path, with K4's FiLM mode and K5
-   counted.
+   counted;
+9. training: the full-width v2 preset from seed 0 trains one epoch through
+   `train/trainer.py:Trainer` on a seeded LJSpeech-shaped synthetic set
+   (48 utterances, three batches of 16, and 16 for validation), with a
+   checkpoint; K6 must run once per step and validation batch and plain MAS
+   never on the card; a second `Trainer` resumes from `grad_1`; one more
+   step runs under `torch.profiler` (kernel time by kind, idle share);
+   then one `train_step` on the card is held against the same step on the
+   CPU (B=2, short utterances, pinned draws, dropout off).
 
 Prints JSON lines; the `{"kernels": [...]}` line and the card line come
 before the last, which is `{"ok": true, "device": {...}}`.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -62,6 +74,11 @@ TOL_SCORE = 1e-3
 TOL_VOC = 1e-3  # fast vocoder against its module path, on the wav in [-1, 1]
 TOL_WAV = 2e-3
 N_STEPS = 50
+# K6's floor of dependent steps: per frame a max and an add (forward) and a
+# bit test and a decrement (backtrace), each at least 4 cycles, at the
+# H100 SXM's 1.98 GHz maximum clock (NVIDIA data sheet)
+CLOCK_HZ = 1.98e9
+MAS_CHAIN_CYCLES = 4 * 4
 
 
 def fail(msg):
@@ -76,6 +93,7 @@ def emit(obj):
 def main():
     if not (ROOT / "arttts_tpu_torch" / "csrc").is_dir():
         fail("arttts_tpu_torch/ is not beside chip_smoke.py: run from a checkout")
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -117,6 +135,7 @@ def main():
                 ptxas.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     emit({"build": {"seconds": round(time.perf_counter() - t0, 2), "ptxas": ptxas}})
 
+    from arttts_tpu_torch.ops import mas as K6
     from arttts_tpu_torch.ops import mrf as K4
     from arttts_tpu_torch.ops import resblock2d as K1
     from arttts_tpu_torch.ops import updown
@@ -171,6 +190,40 @@ def main():
         return err, scale
 
     cases = []
+    mas_cases = []
+
+    def k6_case(name, t_xs, t_ys, T_x, T_y, integer=False, in_step=False):
+        B = len(t_xs)
+        if integer:  # small whole numbers: DP entries tie
+            value = torch.randint(-2, 3, (B, T_x, T_y), generator=g, device=dev).float()
+        else:
+            value = rnd(B, T_x, T_y)
+        tx = torch.tensor(t_xs, dtype=torch.int32, device=dev)
+        ty = torch.tensor(t_ys, dtype=torch.int32, device=dev)
+        mask = ((torch.arange(T_x, device=dev)[None, :, None] < tx[:, None, None])
+                & (torch.arange(T_y, device=dev)[None, None, :] < ty[:, None, None])).float()
+        masked = value * mask
+        kern = lambda: K6.maximum_path(value, mask)  # noqa: E731
+        plain = lambda: K6.maximum_path_plain(masked, tx, ty)  # noqa: E731
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        oracle = K6.mas_reference_numpy(masked.cpu().numpy(), np.asarray(t_xs), np.asarray(t_ys))
+        off_oracle = int((got.cpu().numpy().astype(np.int32) != oracle).sum())
+        n = B * T_x * T_y
+        # the function's bytes: value and mask read, path written
+        bytes_ms = 3 * 4 * n / PEAK_BYTES * 1e3
+        ops_ms = 8 * n / PEAK_F32_FLOPS * 1e3  # compares, selects, max, add per cell
+        chain_ms = T_y * MAS_CHAIN_CYCLES / CLOCK_HZ * 1e3
+        lib = _build.library("mas")
+        mas_cases.append(dict(
+            kernel="maximum_path", case=name, shape=[B, T_x, T_y], t_x=list(t_xs), t_y=list(t_ys),
+            integer_values=integer, in_step=in_step, exact_vs_plain=bool(torch.equal(got, ref)),
+            cells_off_oracle=off_oracle, max_abs_err=(got - ref).abs().max().item(),
+            ms=cuda_ms(kern), kernel_only_ms=cuda_ms(
+                lambda: K6._maximum_path_cuda(lib, masked, tx, ty)),
+            plain_ms=cuda_ms(plain, n=2), bound_ms=max(bytes_ms, ops_ms, chain_ms),
+            bound_by="bytes" if bytes_ms >= max(ops_ms, chain_ms) else "operations",
+            bytes_ms=bytes_ms, ops_ms=ops_ms, dependent_chain_ms=chain_ms, library_ms=None))
 
     def k1_case(name, cs, c_out, H, T, lengths, attn=False, masked=True, block_only=False,
                 in_eval=True):
@@ -319,10 +372,25 @@ def main():
     k4_case("k=11 only, FiLM, 35 tiles", 2, 128, 4096, ks=(11,), film=True)
     k5_case("padding 2, output padding 1", 2, 64, 32, 1001, 2, 1)
     k5_case("padding 0", 1, 128, 64, 999, 0, 0)
+    # K6 (MAS): the training bucket (T_x ~ U[100, 190] in text bucket 192,
+    # T_y = T_x * U(2.5, 4.5) in frame bucket 1024), edges, the thread loop
+    # (T_x > 1024) and ties
+    r = np.random.default_rng(0)
+    t_x = [192] + [int(v) for v in r.integers(100, 191, 15)]
+    t_y = [1024] + [min(1024, int(v * r.uniform(2.5, 4.5))) for v in t_x[1:]]
+    k6_case("training bucket, ragged", t_x, t_y, 192, 1024, in_step=True)
+    k6_case("B=1 at (1, 1)", [1], [1], 1, 1)
+    k6_case("T_y = T_x", [160, 120, 77], [160, 120, 77], 160, 160)
+    k6_case("T_x > 1024 (thread loop)", [1100, 1037], [2048, 1999], 1100, 2048)
+    k6_case("ties (whole numbers)", [64, 50, 33, 64], [256, 200, 150, 64], 64, 256,
+            integer=True)
     for c in cases:
         c["ok"] = c["max_abs_err"] <= TOL_KERNEL * max(1.0, c["max_abs_ref"])
         emit({"kernel_case": c})
-    bad = [f"{c['kernel']} {c['case']}" for c in cases if not c["ok"]]
+    for c in mas_cases:
+        c["ok"] = c["exact_vs_plain"] and c["cells_off_oracle"] == 0
+        emit({"kernel_case": c})
+    bad = [f"{c['kernel']} {c['case']}" for c in cases + mas_cases if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
@@ -553,6 +621,202 @@ def main():
     if not all(r["ok"] for r in sparc_runs):
         fail("SPARC: the fast path disagrees with the module path or skipped a kernel")
 
+    # ---- 9. training: the v2 preset through the port's Trainer --------------
+    from arttts_tpu_torch.train import trainer as trainer_mod
+    from arttts_tpu_torch.train.losses import mas_log_prior
+    from arttts_tpu_torch.train.step import make_optimizer, train_step
+    from arttts_tpu_torch.train.trainer import Trainer
+
+    class SyntheticLJ:
+        """Seeded text-mel pairs shaped like LJSpeech at v2's rates: T_x ~
+        U[100, 190] symbol ids, T_y = T_x * U(2.5, 4.5) frames of 80-row mel."""
+
+        def __init__(self, n, seed):
+            r = np.random.default_rng(seed)
+            t_x = r.integers(100, 191, n)
+            t_y = (t_x * r.uniform(2.5, 4.5, n)).astype(int)
+            self.items = [{"x": r.integers(1, cfg.encoder.n_vocab, a).astype(np.int64),
+                           "y": r.standard_normal((b, F_)).astype(np.float32)}
+                          for a, b in zip(t_x, t_y)]
+
+        def __len__(self):
+            return len(self.items)
+
+        def __getitem__(self, i):
+            return self.items[i]
+
+        def lengths(self):
+            return np.array([len(it["y"]) for it in self.items])
+
+    exp = get_preset("v2")
+    log_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, log_dir=str(log_dir), n_epochs=1, save_every=1, val_every=1, random_seed=0))
+    train_ds, valid_ds = SyntheticLJ(48, seed=10), SyntheticLJ(16, seed=11)
+    trainer = Trainer(exp, train_ds, valid_dataset=valid_ds, device=dev)
+    first = [p.detach().clone() for p in trainer.model.parameters()]
+    step_walls = []
+
+    def timed_step(*a, **k):  # host clock around a step that ends in a sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(*a, **k)
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+        return m
+
+    for f in counters + plains + [K6.maximum_path, K6.maximum_path_plain]:
+        setattr(f, "launches" if f in counters or f is K6.maximum_path else "cuda_calls", 0)
+    GradLogPEstimator2d.cuda_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer_mod.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        train_metrics = trainer.fit(n_epochs=1)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.train_step = train_step
+    fit_s = time.perf_counter() - t0
+    train_launches = {f.__name__: f.launches for f in counters + [K6.maximum_path]}
+    train_plain = {f.__name__: f.cuda_calls for f in plains + [K6.maximum_path_plain]}
+    module_forwards = GradLogPEstimator2d.cuda_calls
+    peak_bytes = torch.cuda.max_memory_allocated()
+    val_metrics = trainer.validate(1)
+    n_steps, n_val = len(trainer.train_loader), len(trainer.valid_loader)
+    moved = sum(not torch.equal(a, p) for a, p in zip(first, trainer.model.parameters()))
+    n_tensors = len(first)
+    trainer2 = Trainer(exp, train_ds, valid_dataset=valid_ds, device=dev)
+    start = trainer2.resume(str(log_dir / "grad_1"))
+    steps_restored = {float(st["step"]) for st in trainer2.optimizer.state.values()}
+    same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                  trainer2.model.state_dict().values()))
+    files = sorted(p.name for p in log_dir.iterdir())
+    shutil.rmtree(log_dir, ignore_errors=True)
+    # where a step's time goes: one more step (the longest batch) under the profiler
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(trainer.train_loader)).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(trainer.model, trainer.optimizer, batch, trainer.generator,
+                   exp.train.out_size)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    step_kernels = {}
+    for a in prof.key_averages():  # kernels only: a user annotation (Adam.step) spans some
+        if (a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
+                and not getattr(a, "is_user_annotation", False)):
+            step_kernels[a.key] = (a.self_device_time_total / 1e3, a.count)
+    step_busy = sum(ms for ms, _ in step_kernels.values())
+    kinds = {"K6 mas_kernel": ("mas_kernel",),
+             "convolutions and matmuls (cuDNN, cuBLAS)": ("conv", "cudnn", "xmma", "cutlass",
+                                                          "gemm", "sm90_", "wgrad", "dgrad"),
+             "Adam (foreach)": ("multi_tensor_apply",), "reductions": ("reduce",),
+             "elementwise": ("elementwise", "vectorized")}
+    step_by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for k, (ms, _) in step_kernels.items():
+        kind = [f for f, keys in kinds.items() if any(key in k for key in keys)]
+        step_by_kind[kind[0] if kind else "other"] += ms
+    step_profile = dict(
+        batch_shape=list(batch["y"].shape), wall_ms_under_profiler=prof_wall_ms,
+        device_kernel_ms=step_busy, idle_share_under_profiler=1 - step_busy / prof_wall_ms,
+        kernel_launches=sum(c for _, c in step_kernels.values()),
+        kernel_ms_by_kind=step_by_kind,
+        kernels_by_time=[{"name": k[:90], "ms": ms, "count": c} for k, (ms, c) in
+                         sorted(step_kernels.items(), key=lambda kv: -kv[1][0])[:12]])
+    del trainer, trainer2, first, batch
+    step_ms = sorted(1e3 * w for w in step_walls[1:])
+    median_ms = step_ms[len(step_ms) // 2] if step_ms else None
+    mas_train = next(c for c in mas_cases if c["in_step"])
+    training = dict(
+        card=card, preset="v2", batch_size=exp.train.batch_size, out_size=exp.train.out_size,
+        steps=n_steps, validation_batches=n_val, fit_s=fit_s,
+        step_wall_ms=[1e3 * w for w in step_walls], median_step_ms_after_first=median_ms,
+        k6_ms_per_step=mas_train["ms"],
+        k6_share_of_step=mas_train["ms"] / median_ms if median_ms else None,
+        max_memory_allocated_bytes=peak_bytes, train_metrics=train_metrics,
+        val_metrics=val_metrics, launches=train_launches, plain_calls_on_card=train_plain,
+        module_path_forwards_on_card=module_forwards, tensors_moved=moved, n_tensors=n_tensors,
+        checkpoints=files, resume_epoch=start, resume_adam_steps=sorted(steps_restored),
+        resume_weights_equal=same, step_profile=step_profile,
+        # the profiled step's kernel time against an unprofiled step's wall
+        idle_share_of_median_step=1 - step_busy / median_ms if median_ms else None)
+    emit({"training": training})
+    want_mas = n_steps + n_val
+    if n_steps != 3 or n_val != 1:
+        fail(f"training: {n_steps} steps and {n_val} validation batches, expected 3 and 1")
+    if train_launches["maximum_path"] != want_mas or any(train_plain.values()):
+        fail(f"training: MAS launches {train_launches}, plain calls {train_plain}; "
+             f"expected {want_mas} K6 launches and no plain version on the card")
+    if not all(math.isfinite(v) for v in [*train_metrics.values(), *val_metrics.values()]):
+        fail(f"training: a loss is not finite: {train_metrics} {val_metrics}")
+    if not moved or start != 2 or steps_restored != {float(n_steps)} or not same:
+        fail(f"training: moved {moved} tensors, resumed at epoch {start} with Adam steps "
+             f"{steps_restored}, weights equal {same}")
+    if not {"grad_1", "grad_best", "grad_final"} <= set(files):
+        fail(f"training: checkpoints {files}")
+
+    # ---- 9b. one train step on the card against the same step on the CPU ------
+    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, dropout=0.0, prenet_dropout=0.0))  # dropout's masks differ by device
+    out_size = exp.train.out_size
+    r = np.random.default_rng(5)
+    x_l, y_l = np.array([64, 50], np.int32), np.array([256, 201], np.int32)
+    xb = r.integers(1, cfg.encoder.n_vocab, (2, 64))
+    yb = r.standard_normal((2, 256, F_)).astype(np.float32)
+    for i in range(2):
+        xb[i, x_l[i]:] = 0
+        yb[i, y_l[i]:] = 0
+    batch_np = dict(x=xb, x_lengths=x_l, y=yb, y_lengths=y_l,
+                    pinned_t=r.uniform(0.05, 0.95, 2).astype(np.float32),
+                    pinned_z=r.standard_normal((2, out_size, F_)).astype(np.float32),
+                    pinned_offsets=(r.random(2) * (y_l - out_size)).astype(np.int32))
+    side = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = build_model(cfg0, device=d, seed=0)
+        est_d = m.decoder.estimator
+        with torch.no_grad():
+            for k, site in enumerate([lv[2] for lv in est_d.downs] + [est_d.mid_attn]
+                                     + [u[2] for u in est_d.ups]):
+                site.fn.g.fill_((0.03 + 0.01 * k) * (-1) ** k)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
+        with torch.no_grad():
+            mu_x, _, x_mask = m.encode(b["x"], b["x_lengths"])
+            y_mask = (torch.arange(256, device=d)[None] < b["y_lengths"][:, None]).float()
+            lp, am = mas_log_prior(mu_x, b["y"], x_mask, y_mask[:, :, None])
+            path = K6.maximum_path(lp, am)
+        metrics = train_step(m, make_optimizer(m, exp.train.learning_rate), b, None, out_size)
+        side[name] = dict(path=path.cpu(), log_prior=lp.cpu(),
+                            metrics={k: float(v) for k, v in metrics.items()},
+                            grads={n: p.grad.cpu() for n, p in m.named_parameters()})
+        del m
+    gpu, cpu = side["card"], side["cpu"]
+    diff_frames = (gpu["path"] != cpu["path"]).any(dim=1)  # (B, T_y)
+    lp_diff = ((gpu["log_prior"] - cpu["log_prior"]).abs().amax(dim=1)[diff_frames].max().item()
+               if diff_frames.any() else 0.0)
+    loss_rel = {k: abs(gpu["metrics"][k] - cpu["metrics"][k]) / max(abs(cpu["metrics"][k]), 1e-30)
+                for k in cpu["metrics"]}
+    grad_worst, grad_name = 0.0, ""
+    for n, gc in cpu["grads"].items():
+        share = ((gpu["grads"][n] - gc).abs().max().item()
+                 / (1e-3 * gc.abs().max().item() + 1e-7))
+        if share > grad_worst:
+            grad_worst, grad_name = share, n
+    step_check = dict(card=card, B=2, T_x=64, T_y=256, out_size=out_size,
+                      path_frames_differing=int(diff_frames.sum()),
+                      log_prior_max_diff_there=lp_diff, metrics_card=gpu["metrics"],
+                      metrics_cpu=cpu["metrics"], metrics_rel_diff=loss_rel,
+                      grad_tolerance_share_worst=grad_worst, grad_worst_tensor=grad_name,
+                      tol="losses rtol 1e-4; grads 1e-3 * max|g_cpu| + 1e-7 per tensor")
+    emit({"card_vs_cpu_train_step": step_check})
+    if diff_frames.any():
+        fail(f"card vs CPU step: MAS paths differ in {int(diff_frames.sum())} frames "
+             f"(largest log-prior difference there {lp_diff})")
+    if max(loss_rel.values()) > 1e-4 or grad_worst > 1.0:
+        fail(f"card vs CPU step: losses {loss_rel}, worst gradient {grad_name} at "
+             f"{grad_worst:.3g} of its tolerance")
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -594,6 +858,20 @@ def main():
             "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None if None in lib else sum(lib),
         })
+    kernels.append({
+        "name": "maximum_path", "route": "cuda", "source": "arttts_tpu_torch/csrc/mas.cu",
+        "replaces": "arttts_tpu/ops/mas_pallas.py:41",
+        "tpu_wrappers": ["mas_pallas :180 (_mas_kernel :41, pallas_call :109)"],
+        "launches": train_launches["maximum_path"],
+        "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
+        "exact": all(c["exact_vs_plain"] and c["cells_off_oracle"] == 0 for c in mas_cases),
+        "tolerance": "bit for bit against the plain version and the NumPy oracle",
+        "per": ("one call at the training bucket, B=16 192x1024 (once per train step and "
+                "per validation batch)"),
+        "ms": mas_train["ms"], "plain_ms": mas_train["plain_ms"],
+        "bound_ms": mas_train["bound_ms"], "bound_by": mas_train["bound_by"],
+        "library_ms": None,
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "arttts_tpu_torch.infer.sampler" in res["imported"]
     assert "arttts_tpu_torch.ops.resblock2d" in res["imported"]
-    for mod in ("ops.mrf", "ops.upsample", "infer.chunked"):
+    for mod in ("ops.mrf", "ops.upsample", "infer.chunked", "ops.mas", "train.losses",
+                "train.step", "train.trainer", "data.batching", "core.checkpoint",
+                "utils.early_stopping"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -53,12 +55,13 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_kernel_modules_need_no_cuda_until_called(monkeypatch):
-    from arttts_tpu_torch.ops import _build, mrf, resblock2d, updown, upsample  # noqa: F401
+    from arttts_tpu_torch.ops import _build, mas, mrf, resblock2d, updown, upsample  # noqa: F401
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="CUDA"):
         _build.library("resblock2d")
+    assert "mas" in _build.SOURCES and "mas_path" in _build.SIGNATURES["mas"]
 
 
 def test_cuda_requests_raise_without_a_card(monkeypatch):
@@ -86,6 +89,24 @@ def test_cuda_requests_raise_without_a_card(monkeypatch):
         sampler.encode_text(model, x, np.array([5]))  # device defaults to "cuda"
     with pytest.raises(ValueError, match="lives on cpu"):
         sampler.encode_text(model, x, np.array([5]), device="meta")
+
+    from arttts_tpu_torch.core.config import ExperimentConfig
+    from arttts_tpu_torch.ops import mas
+    from arttts_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(ExperimentConfig(model=small), train_dataset=None)  # device defaults to "cuda"
+
+    class OnCard(torch.Tensor):
+        """A CPU tensor that reports a CUDA device, to reach the kernel side."""
+
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    value = torch.zeros(1, 3, 5).as_subclass(OnCard)
+    with pytest.raises(RuntimeError, match="CUDA kernels need a CUDA device"):
+        mas.maximum_path(value, torch.ones(1, 3, 5))  # no plain version on a CUDA tensor
 
 
 def _mrf_branch(C, k, dilations=(1, 3, 5)):
@@ -131,6 +152,16 @@ def test_wrappers_take_plain_versions_only_on_cpu():
         mrf.mrf_stage(x1.to("meta"), br)
     with pytest.raises(ValueError, match="cpu or cuda"):
         upsample.upsample1d(x1.to("meta"), w_up, b_up, 2, 1)
+
+    from arttts_tpu_torch.ops import mas
+
+    value, mask = torch.randn(2, 5, 9, generator=g), torch.ones(2, 5, 9)
+    before = mas.maximum_path.launches
+    path = mas.maximum_path(value, mask)
+    assert mas.maximum_path.launches == before and mas.maximum_path_plain.cuda_calls == 0
+    assert path.shape == value.shape and float(path.sum()) == 2 * 9
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        mas.maximum_path(value.to("meta"), mask.to("meta"))
 
 
 def test_kernel_operands_are_checked_before_launch():
@@ -184,3 +215,22 @@ def test_kernel_operands_are_checked_before_launch():
         upsample._upsample1d_cuda(None, x1, w_up, torch.zeros(32), 2, 1, 2)
     with pytest.raises(ValueError, match="weight"):
         upsample._upsample1d_cuda(None, x1, torch.zeros(32, 32, 4), torch.zeros(32), 2, 1, 0)
+
+    from arttts_tpu_torch.ops import mas
+
+    v = torch.zeros(2, 7, 30)
+    tx, ty = torch.tensor([7, 5], dtype=torch.int32), torch.tensor([30, 20], dtype=torch.int32)
+    with pytest.raises(ValueError, match="value"):
+        mas._maximum_path_cuda(None, v.double(), tx, ty)
+    with pytest.raises(ValueError, match="value"):
+        mas._maximum_path_cuda(None, v.transpose(1, 2).contiguous().transpose(1, 2), tx, ty)
+    with pytest.raises(ValueError, match="value"):
+        mas._maximum_path_cuda(None, v[0], tx, ty)
+    with pytest.raises(ValueError, match="t_xs"):
+        mas._maximum_path_cuda(None, v, tx.long(), ty)
+    with pytest.raises(ValueError, match="t_ys"):
+        mas._maximum_path_cuda(None, v, tx, torch.tensor([30], dtype=torch.int32))
+    with pytest.raises(ValueError, match=">= 1"):
+        mas._maximum_path_cuda(None, torch.zeros(2, 7, 0), tx, ty)
+    with pytest.raises(ValueError, match="exceeds"):
+        mas._maximum_path_cuda(None, torch.zeros(1, mas.MAX_T_X + 1, 1), tx[:1], ty[:1])
