@@ -1,6 +1,7 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
-// Every kernel here computes in float32 on the CUDA cores. Launchers are
+// Every kernel computes to float32 accuracy: on the CUDA cores, or (K2, K3 in
+// updown.cu) on the tensor cores in 3xTF32. Launchers are
 // `extern "C"` functions with a plain C interface (bound from Python with
 // ctypes): device pointers, sizes and the caller's stream in, a CUDA error
 // code out (0 on success), checked right after each launch.

@@ -11,8 +11,11 @@ CUDA kernels, with their plain PyTorch versions.
   weight in torch layout (in, out, kh, kw), on the masked input.
 
 Layout (B, C, H, T) float32; `lengths` (B,) int32 counts the valid frames of
-the input. Both are compute-bound float32 work on the CUDA cores; the note
-at the top of `csrc/updown.cu` says how the kernels are tiled for it.
+the input. Both kernels are implicit GEMMs on the tensor cores in 3xTF32
+(float32 accuracy); they take torch-layout weights as they are. The note at
+the top of `csrc/updown.cu` says how they are tiled and staged. The CUDA
+side takes input channels in multiples of 8 and output channels in
+multiples of 64.
 
 On CPU tensors the wrappers run the plain version; on CUDA tensors the
 kernel; anything else raises.
@@ -49,6 +52,13 @@ def conv_transpose2d_plain(x, lengths, w, b):
 conv_transpose2d_plain.cuda_calls = 0
 
 
+def _check_channels(c_in, c_out):
+    if c_out % 64:
+        raise ValueError(f"output channels must be a multiple of 64, got {c_out}")
+    if c_in % 8:
+        raise ValueError(f"input channels must be a multiple of 8, got {c_in}")
+
+
 def _operands(x, lengths, w, b, w_shape, c_out):
     B, _, H, T = x.shape
     dev = x.device
@@ -74,8 +84,7 @@ downsample2d.launches = 0
 
 def _downsample2d_cuda(lib, x, lengths, w, b):
     c_out, c_in = w.shape[0], x.shape[1]
-    if c_out % 64:
-        raise ValueError(f"output channels must be a multiple of 64, got {c_out}")
+    _check_channels(c_in, c_out)
     B, H, T = _operands(x, lengths, w, b, (c_out, c_in, 3, 3), c_out)
     out = torch.empty((B, c_out, (H + 1) // 2, (T + 1) // 2), device=x.device)
     downsample2d.launches += 1
@@ -100,8 +109,7 @@ conv_transpose2d.launches = 0
 
 def _conv_transpose2d_cuda(lib, x, lengths, w, b):
     c_in, c_out = w.shape[0], w.shape[1]
-    if c_out % 64:
-        raise ValueError(f"output channels must be a multiple of 64, got {c_out}")
+    _check_channels(c_in, c_out)
     B, H, T = _operands(x, lengths, w, b, (x.shape[1], c_out, 4, 4), c_out)
     out = torch.empty((B, c_out, 2 * H, 2 * T), device=x.device)
     conv_transpose2d.launches += 1

@@ -21,7 +21,12 @@ fatal on failure (exit code 1, no result line):
    `maximum_path` (MAS) at the training bucket (B=16, 192 x 1024, ragged),
    (1, 1), T_y = T_x, T_x > 1024 and a case of ties, bit for bit against
    its plain version and the NumPy oracle; time each (CUDA events) beside
-   its bound, plain version and library call;
+   its bound, plain version and library call. K2 and K3 (3xTF32 on the
+   tensor cores) run each case twice and must give the same bits; at the
+   main path's four shapes they also get their device time per call from
+   `torch.profiler`, both bounds (tensor-core route and float32 CUDA
+   cores) and their grid's block count, and a line says whether each beat
+   its library call;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding);
 4b. hold the full-width vocoder's fast path (K4, K5) against its module
@@ -66,8 +71,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, TF32 on the
+# tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 TOL_KERNEL = 1e-4  # max |kernel - plain| <= TOL * max(1, max |plain|)
 TOL_SCORE = 1e-3
@@ -174,9 +181,25 @@ def main():
         b.synchronize()
         return a.elapsed_time(b) / n
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, key=None, n=20):
+        """Device time per call of the kernels whose name holds `key` (all
+        kernels when None), from torch.profiler over n calls."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(a.self_device_time_total for a in prof.key_averages()
+                 if a.device_type == DeviceType.CUDA and (key is None or key in a.key))
+        return us / 1e3 / n
 
     def compare(kernel_fn, plain_fn):
         got, ref = kernel_fn(), plain_fn()
@@ -254,12 +277,21 @@ def main():
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, library_ms=None))
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
     def updown_case(kernel, cin, H, T, lengths):
         B = len(lengths)
         x = rnd(B, cin, H, T)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         if kernel == "downsample2d":
             w, b = rnd(cin, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(cin, scale=0.1)
+            # csrc/updown.cu's launcher: 64 channels x 4 x 16 output pixels a
+            # block where that gives a block to every SM, else 64 x 2 x 16
+            for r in (4, 2):
+                blocks = (math.ceil((H + 1) // 2 / r) * math.ceil((T + 1) // 2 / 16)
+                          * (cin // 64) * B)
+                if blocks >= n_sm:
+                    break
             kern = lambda: updown.downsample2d(x, lens, w, b)  # noqa: E731
             plain = lambda: updown.downsample2d_plain(x, lens, w, b)  # noqa: E731
             lib = lambda: torch.nn.functional.conv2d(x, w, b, stride=2, padding=1)  # noqa: E731
@@ -273,16 +305,28 @@ def main():
                 x, w, b, stride=2, padding=1)
             out_n = B * cin * 4 * H * T
             flops = 2 * 4 * cin * out_n  # 4 of the 16 taps reach each output
+            # 64 channels x an input tile of 2 x 16 a block
+            blocks = math.ceil(H / 2) * math.ceil(T / 16) * (cin // 64) * B
         err, scale = compare(kern, plain)
-        b_ms, b_by = bound(flops, 4 * (B * cin * H * T + out_n + w.numel() + b.numel()))
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
+        nbytes = 4 * (B * cin * H * T + out_n + w.numel() + b.numel())
+        # the tensor-core route: three TF32 passes per product (3xTF32)
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound(flops, nbytes)
         # the main path's calls (B=1, unpadded); there the library call is the
         # same function
         full = lengths == [T]
         lib_ms = cuda_ms(lib) if full else None
+        name = "downsample_kernel" if kernel == "downsample2d" else "convt_kernel"
         cases.append(dict(kernel=kernel, case=f"C={cin} {H}x{T}", shape=[B, cin, H, T],
                           lengths=lengths, in_eval=full, max_abs_err=err, max_abs_ref=scale,
+                          same_bits_twice=same_bits, blocks=blocks,
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms))
+                          bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
+                          device_ms_per_call=device_ms(kern, name) if full else None,
+                          library_ms=lib_ms,
+                          library_device_ms=device_ms(lib) if full else None))
 
     def k4_case(name, B, C, T, ks=(3, 7, 11), film=False, in_eval=False, n=5):
         w = tuple(K4.MRFBranch(w1=rnd(3, C, C, k, scale=(k * C) ** -0.5), b1=rnd(3, C, scale=0.1),
@@ -385,14 +429,28 @@ def main():
     k6_case("ties (whole numbers)", [64, 50, 33, 64], [256, 200, 150, 64], 64, 256,
             integer=True)
     for c in cases:
-        c["ok"] = c["max_abs_err"] <= TOL_KERNEL * max(1.0, c["max_abs_ref"])
+        c["ok"] = (c["max_abs_err"] <= TOL_KERNEL * max(1.0, c["max_abs_ref"])
+                   and c.get("same_bits_twice", True)
+                   and not (c["in_eval"] and c.get("blocks", n_sm) < n_sm))
         emit({"kernel_case": c})
     for c in mas_cases:
         c["ok"] = c["exact_vs_plain"] and c["cells_off_oracle"] == 0
         emit({"kernel_case": c})
     bad = [f"{c['kernel']} {c['case']}" for c in cases + mas_cases if not c["ok"]]
     if bad:
-        fail(f"kernel disagrees with its plain version: {bad}")
+        fail(f"kernel disagrees with its plain version, differs between two runs or "
+             f"under-fills the card: {bad}")
+    # PERF.md's kernel table, rows 3-6: K2 and K3 at the main path's shapes
+    rows = {("downsample2d", 64): 3, ("downsample2d", 128): 4, ("conv_transpose2d", 128): 5,
+            ("conv_transpose2d", 64): 6}
+    emit({"updown_vs_library": [
+        dict(row=rows[(c["kernel"], c["shape"][1])], kernel=c["kernel"], case=c["case"],
+             blocks=c["blocks"], sms=n_sm, ms=c["ms"], library_ms=c["library_ms"],
+             beat_library=c["ms"] <= c["library_ms"],
+             device_ms_per_call=c["device_ms_per_call"],
+             library_device_ms=c["library_device_ms"],
+             beat_library_on_device=c["device_ms_per_call"] <= c["library_device_ms"])
+        for c in cases if c["kernel"] in ("downsample2d", "conv_transpose2d") and c["in_eval"]]})
 
     # ---- 4. the score network: kernel path against the module path --------
     from arttts_tpu_torch.core.config import get_preset
@@ -539,9 +597,6 @@ def main():
         fail(f"a plain version ran on the card in the main path: {plain_on_card}")
 
     # ---- 7. where the time goes: one bench-shape request under the profiler --
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     x, n = texts[-1], requests[-1][1]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -563,13 +618,19 @@ def main():
                 "K2 downsample2d": ("downsample_kernel",), "K3 conv_transpose2d": ("convt_kernel",),
                 "K4 mrf_stage": ("mrf_round_kernel",), "K5 upsample1d": ("upsample_kernel",)}
     by_family = dict.fromkeys(list(families) + ["other"], 0.0)
-    for k, (ms, _) in by_name.items():
+    calls = dict.fromkeys(list(families) + ["other"], 0)
+    for k, (ms, c) in by_name.items():
         fam = [f for f, keys in families.items() if any(key in k for key in keys)]
         by_family[fam[0] if fam else "other"] += ms
+        calls[fam[0] if fam else "other"] += c
     emit({"trace": {"card": card, "request": "bench shape, 768 frames, 50 steps",
                     "wall_ms_under_profiler": wall_ms, "device_kernel_ms": busy,
                     "idle_share": (1 - busy / wall_ms) if busy else None,
                     "kernel_ms_by_family": by_family,
+                    # K2 and K3: 100 launches each per request (2 per evaluation)
+                    "device_ms_per_call": {f: by_family[f] / calls[f] for f in
+                                           ("K2 downsample2d", "K3 conv_transpose2d")
+                                           if calls[f]},
                     "kernels_by_time": [{"name": k[:90], "ms": ms, "count": c}
                                         for k, (ms, c) in top]}})
 
@@ -842,6 +903,13 @@ def main():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]
         lib = [c["library_ms"] for c in ev]
+        updown_extra = {}
+        if name in ("downsample2d", "conv_transpose2d"):
+            updown_extra = {
+                "arithmetic": "3xTF32 on the tensor cores (mma.sync m16n8k8), float32 accumulation",
+                "bound_f32_cuda_core_ms": sum(c["bound_f32_cuda_core_ms"] for c in ev),
+                "device_ms": sum(c["device_ms_per_call"] for c in ev),
+                "library_device_ms": sum(c["library_device_ms"] for c in ev)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_wrappers": wrappers, "launches": launches[name],
@@ -857,6 +925,7 @@ def main():
             "bound_ms": sum(c["bound_ms"] for c in ev),
             "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None if None in lib else sum(lib),
+            **updown_extra,
         })
     kernels.append({
         "name": "maximum_path", "route": "cuda", "source": "arttts_tpu_torch/csrc/mas.cu",

@@ -9,6 +9,10 @@ Pallas kernels to those modules), plus two interpret-mode cases against the
 Pallas kernels themselves (f32 dots), one of them in the masked-statistics,
 eps 1e-6 mode no module has. Inputs are numpy draws from a fixed seed;
 tolerance atol/rtol 2e-4 (float32 both sides, sums in other orders).
+
+The last tests emulate the arithmetic of K2 and K3 (`csrc/updown.cu`:
+3xTF32 on the tensor cores) on the CPU and hold it to `chip_smoke.py`'s
+kernel tolerance against the plain versions.
 """
 
 import jax
@@ -16,10 +20,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from arttts_tpu.models.convs import ConvTranspose2dTorch
 from arttts_tpu.models.unet2d import Block2d, Downsample2d, LinearAttention2d, ResnetBlock2d
-from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, resblock2d
+from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, frame_mask, resblock2d
 from arttts_tpu_torch.ops.updown import conv_transpose2d, downsample2d
 
 
@@ -191,3 +196,126 @@ def test_resblock_plain_matches_pallas_interpret(wide):
     got = resblock2d(_chunks(x, (C,)), torch.tensor(lengths, dtype=torch.int32), tv,
                      _block_weights(p), masked_stats=True, eps=eps, attn=aw)
     _close(got, _nchw(ref))
+
+
+# ---- the 3xTF32 arithmetic of K2 and K3 (csrc/updown.cu), emulated ------------
+TOL_KERNEL = 1e-4  # chip_smoke.py: max |kernel - plain| <= TOL * max(1, max |plain|)
+
+
+def _tf32(a):
+    """float32 -> TF32 as `cvt.rna.tf32.f32` rounds it: to nearest, ties away
+    from zero, keeping 10 stored mantissa bits (the low 13 bits cleared)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(a):
+    """float32 as the tensor core reads it for a TF32 operand: its top 19
+    bits (the low 13 cleared, toward zero)."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    """The kernels' split: hi = tf32(a), lo = a - hi as the tensor core reads it."""
+    hi = _tf32(a)
+    return hi, _tf32_trunc(a - hi)
+
+
+def _mma(acc, a, b, passes):
+    """acc += a @ b as the kernels' `mma.sync` steps: 3xTF32 (lo.hi, hi.lo,
+    hi.hi, in that order) or one TF32 pass; TF32 products are exact in float32."""
+    if passes == 3:
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        acc += al @ bh
+        acc += ah @ bl
+        acc += ah @ bh
+    else:
+        acc += _tf32(a) @ _tf32(b)
+
+
+def _k2_by_split(x, lengths, w, b, passes=3):
+    """K2's decomposition: per 8-channel chunk, per tap, one k8 step over the
+    chunk's channels; B from the even/odd column planes of the padded window."""
+    B, C, H, T = x.shape
+    Ho, To = (H + 1) // 2, (T + 1) // 2
+    xp = F.pad(x * frame_mask(lengths, T, x.dtype), (1, 2, 1, 2))
+    planes = (xp[..., 0::2], xp[..., 1::2])  # even and odd input columns
+    acc = torch.zeros(w.shape[0], B * Ho * To)
+    for ci0 in range(0, C, 8):
+        for kh in range(3):
+            for kw in range(3):
+                win = planes[kw & 1][:, ci0:ci0 + 8, kh:kh + 2 * Ho:2, kw // 2:kw // 2 + To]
+                _mma(acc, w[:, ci0:ci0 + 8, kh, kw], win.permute(1, 0, 2, 3).reshape(8, -1),
+                     passes)
+    return (acc.reshape(-1, B, Ho, To).permute(1, 0, 2, 3) + b[:, None, None])
+
+
+def _k3_by_split(x, lengths, w, b, passes=3):
+    """K3's decomposition: output (2a + py, 2c + px) is parity class (py, px),
+    its taps ky = 1 - py + 2 jy, kx = 1 - px + 2 jx read input
+    (a + py - jy, c + px - jx); per chunk, per class, per tap one k8 step."""
+    B, C, H, T = x.shape
+    xp = F.pad(x * frame_mask(lengths, T, x.dtype), (1, 1, 1, 1))
+    out = torch.zeros(B, w.shape[1], 2 * H, 2 * T)
+    for py in range(2):
+        for px in range(2):
+            acc = torch.zeros(w.shape[1], B * H * T)
+            for ci0 in range(0, C, 8):
+                for jy in range(2):
+                    for jx in range(2):
+                        ky, kx = 1 - py + 2 * jy, 1 - px + 2 * jx
+                        r0, c0 = 1 + py - jy, 1 + px - jx
+                        win = xp[:, ci0:ci0 + 8, r0:r0 + H, c0:c0 + T]
+                        _mma(acc, w[ci0:ci0 + 8, :, ky, kx].t(),
+                             win.permute(1, 0, 2, 3).reshape(8, -1), passes)
+            out[:, :, py::2, px::2] = acc.reshape(-1, B, H, T).permute(1, 0, 2, 3)
+    return out + b[:, None, None]
+
+
+def test_tf32_split_reproduces_float32():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100_000, generator=g) * torch.exp(torch.randn(100_000, generator=g) * 4)
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 3 * 2 ** -11), 1 + 2 ** -12])
+    assert _tf32(tie).tolist() == [1 + 2 ** -10, -(1 + 2 * 2 ** -10), 1.0]
+    assert _tf32_trunc(torch.tensor([1 + 2 ** -10 + 2 ** -11])).item() == 1 + 2 ** -10
+    hi = _tf32(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
+    err = (x.double() - hi.double()).abs() / x.abs().double()
+    # lo rounded to TF32 as well: x to 2^-22; the kernels' lo (truncated by
+    # the tensor core, one instruction less): x to 2^-21
+    lo_rna = _tf32(x - hi)
+    assert ((hi.double() + lo_rna.double() - x.double()).abs() / x.abs().double()
+            <= 2.0 ** -22).all()
+    hi_, lo = _split(x)
+    assert torch.equal(hi_, hi) and not (lo.view(torch.int32) & 0x1FFF).any()
+    rel = (hi.double() + lo.double() - x.double()).abs() / x.abs().double()
+    assert (rel <= 2.0 ** -21).all() and rel.max() < err.max() * 2.0 ** -9
+
+
+@pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d"])
+def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
+    """The kernels' arithmetic on the CPU: their decomposition in 3xTF32 meets
+    TOL_KERNEL against the plain version at C=128 (K = 1,152 for K2, 512 per
+    class for K3), padded frames included; the same decomposition in one
+    TF32 pass misses it, which is why the kernels split."""
+    from arttts_tpu_torch.ops import updown
+
+    g = torch.Generator().manual_seed(1)
+    C, lengths = 128, torch.tensor([64, 41], dtype=torch.int32)
+    if kernel == "downsample2d":
+        x = torch.randn(2, C, 8, 64, generator=g)
+        w = torch.randn(C, C, 3, 3, generator=g) * (9 * C) ** -0.5
+        emulate, plain = _k2_by_split, updown.downsample2d_plain
+    else:
+        x = torch.randn(2, C, 6, 64, generator=g)
+        w = torch.randn(C, C, 4, 4, generator=g) * (4 * C) ** -0.5
+        emulate, plain = _k3_by_split, updown.conv_transpose2d_plain
+    b = torch.randn(C, generator=g) * 0.1
+    ref = plain(x, lengths, w, b)
+    limit = TOL_KERNEL * max(1.0, ref.abs().max().item())
+    got = emulate(x, lengths, w, b)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= limit / 10
+    one_pass = emulate(x, lengths, w, b, passes=1)
+    assert (one_pass - ref).abs().max().item() > limit
