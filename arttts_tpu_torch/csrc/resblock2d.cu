@@ -1,5 +1,6 @@
 // K1: one whole U-Net ResnetBlock2d, with Rezero(LinearAttention2d) fused
-// behind it where the block has one.
+// behind it where the block has one; its 3x3 and 1x1 products as implicit
+// GEMMs on Hopper's tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel `_resblock_kernel` of
 // arttts_tpu/ops/resblock2d_pallas.py, reached through `resblock2d_packed`
@@ -14,152 +15,391 @@
 //
 // Layout: images are (B, C, H, T) float32, H = feature rows, T = frames; an
 // input may arrive as two channel chunks, so the skip concatenation of the
-// U-Net's up path is never materialised.
+// U-Net's up path is never materialised: staging reads each channel through
+// its chunk's pointer.
 //
-// What bounds it on the H100: the two 3x3 convolutions, ~99% of the block's
-// operations (2*9*Cin*Cout per output element); float32 on the CUDA cores
-// (67 TFLOP/s) makes the block compute-bound at every level. The design
-// keeps the convolution's operands in shared memory and registers: a block
-// computes a 64-channel x 8-row x 32-frame output tile, 8 channels x 8
-// frames per thread, so each input value loaded from shared memory feeds 8
-// multiply-adds and each weight 8. GroupNorm needs statistics over the whole
-// image before any element can be normalised; the conv kernel writes one
-// partial (sum, sum of squares) per tile and group, and a second small kernel
-// reduces them in a fixed order in double precision. No float atomics, so
-// the result is the same on every run.
+// What bounds it on the H100: the products. The two 3x3 convolutions are
+// 87% of the block's operations (83.9 of 96.7 GFLOP a score evaluation)
+// and the 1x1 products (residual projection, attention qkv and output
+// projection) most of the rest; even at 3xTF32 (three TF32 passes at
+// 495 TFLOP/s dense) they bind over the block's bytes at every call of the
+// U-Net. The GroupNorm and attention-core kernels below them are bytes
+// and latency.
+//
+// Design of the products (`igemm_body`, shared by `conv3x3_kernel` and
+// `conv1x1_kernel`): an implicit GEMM with M = Cout, N = output pixels of a
+// tile of R rows x 32 frames, K = KS*KS*Cin, in 3xTF32 on `mma.sync.m16n8k8`
+// with float32 accumulation (tf32_mma.cuh). The same GEMM on Hopper's
+// `wgmma` (scripts/conv_wgmma_route.cu) is faster where its large tile
+// fills the card, but its registers allow one block an SM, so the tiles
+// that fill the card at 20x192 run two waves, and it is slower over a score
+// evaluation (scripts/resblock2d_variants.py times both). What the design
+// does about the faults of the CUDA-core version it replaced:
+// 1. Tensor cores instead of float32 FMAs: each warp computes a 32-channel x
+//    32-pixel tile (2 m16 x 4 n8), so one k8 step splits 8 weights and 8
+//    window values for 24 `mma`s.
+// 2. Staging overlaps the `mma`s: a 2-stage `cp.async` ring over chunks of
+//    8*WK input channels; chunk i+1's copies are in flight while chunk i's
+//    `mma`s run. Each chunk's input window, (R + 2) x 34 per channel, is
+//    staged once and all 9 taps read it from shared memory. Halo, sequence
+//    edges, frames t >= lengths[b] and channels past Cin are copies with
+//    src-size 0 (zero fill): no per-element branch in the inner loop.
+// 3. Weights: torch's (Cout, Cin, 3, 3) (or (Cout, Cin)) is already the
+//    row-major M x K operand; a chunk is 72*WK (8*WK) contiguous floats per
+//    output channel and goes in 16-byte copies (4-byte ones when Cin is not
+//    a multiple of 4: the 2-plane input of the first block).
+// 4. Grid fill: the launcher takes, per shape, the first of three tiles that
+//    gives every SM a block: 64 channels x 4 x 32 pixels (WK 1), 64 x 2 x 32
+//    with the chunk's K split over two warp groups (WK 2), 32 x 2 x 32 split
+//    over four (WK 4). The groups' sums meet in shared memory in a fixed
+//    order. At the U-Net's bench shapes every 3x3 launch has 240 or 480
+//    blocks and every 1x1 launch 180-2880, for 132 SMs (it was 36-240).
+// 5. Bank conflicts: weight rows are padded to a pitch of 4 x odd words and
+//    window channels to 8 mod 32 words, so the A and B fragments' 32 lanes
+//    hit 32 banks.
+// GroupNorm needs statistics over the whole image before any element can be
+// normalised: the 3x3 epilogue adds the bias, stores the raw output and
+// writes one (sum, sum of squares) partial per tile and 8-channel slot, and
+// `gn_stats_kernel` reduces the partials in a fixed order in double
+// precision. No float atomics and no split K across blocks: a second call
+// gives the same bits.
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using arttts::ceil_div;
+using arttts::cp_async16;
+using arttts::cp_async4;
+using arttts::cp_async_commit;
+using arttts::cp_async_wait;
 using arttts::kThreads;
 using arttts::mish;
+using arttts::mma3;
+using arttts::set_smem;
+using arttts::sm_count;
+using arttts::split_tf32;
 
-constexpr int kCoTile = 64;   // output channels per block
-constexpr int kRows = 8;      // output rows per block
-constexpr int kCols = 32;     // output frames per block
-constexpr int kCiStep = 8;    // input channels staged per shared-memory round
-constexpr int kGroups = 8;    // GroupNorm groups (the U-Net's `groups`)
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;
+constexpr int kCols = 32;   // output frames of a tile row: a warp's 4 n8 tiles
+constexpr int kGroups = 8;  // GroupNorm groups (the U-Net's `groups`)
 
-// Input channel `ci` of a two-chunk image at (b, row, frame): chunk 0 holds
-// channels [0, c0), chunk 1 channels [c0, c0 + c1).
-__device__ __forceinline__ float load_chunked(const float* __restrict__ x0, int c0,
-                                              const float* __restrict__ x1, int c1,
-                                              int b, int ci, int row, int t, int H,
-                                              int T) {
-  if (ci < c0) return x0[((size_t)(b * c0 + ci) * H + row) * T + t];
-  return x1[((size_t)(b * c1 + ci - c0) * H + row) * T + t];
-}
+// One product launch: out = W * x (+ bias), 3x3 with zero padding 1 or 1x1,
+// over the input frames t < lengths[b] (all frames when `lengths` is null).
+// Epilogue: raw store plus GroupNorm partials (`partial`), or the Rezero
+// form out = resid + gain[0] * (W x + bias) (`resid`), or a plain store.
+struct ConvArgs {
+  const float* x0;
+  const float* x1;
+  int c0, c1;  // channels of the two input chunks (c1 = 0: one chunk)
+  const int* lengths;
+  const float* w;
+  const float* bias;
+  const float* resid;
+  const float* gain;
+  float* out;
+  float* partial;
+  int H, T, Cout, masked_stats;
+};
 
-// 3x3 convolution, stride 1, zero padding 1, on the masked input (frames
-// t >= lengths[b] read as zero), plus bias. Writes the raw output and one
-// (sum, sum of squares) partial per (batch, 8-channel slot, spatial tile).
-// Grid: (spatial tiles, Cout / 64, B).
-__global__ void __launch_bounds__(kThreads)
-conv3x3_stats_kernel(const float* __restrict__ x0, int c0, const float* __restrict__ x1,
-                     int c1, const int* __restrict__ lengths, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     float* __restrict__ partial, int H, int T, int Cout,
-                     int masked_stats) {
-  __shared__ float in_s[kCiStep][kRows + 2][kCols + 2];
-  __shared__ __align__(16) float w_s[kCiStep][9][kCoTile];
-  __shared__ float red_s[kThreads][2];
+// A block: WM x WN x WK warps. Warp (wm, wn, wk) computes output channels
+// 32 wm..+31 of the block and row wn of its tile (32 frames, 4 n8 tiles),
+// over channel group wk (8 channels) of every staged chunk.
+template <int KS, int WM, int WN, int WK>
+struct Tile {
+  static constexpr int kTaps = KS * KS;
+  static constexpr int kBM = 32 * WM;  // output channels of a block
+  static constexpr int kRows = WN;     // output rows of a tile
+  static constexpr int kCi = 8 * WK;   // input channels of a staged chunk
+  static constexpr int kWinRows = kRows + KS - 1;
+  static constexpr int kWinCols = kCols + KS - 1;
+  static constexpr int kARow = kCi * kTaps;  // a chunk's weights of one output channel
+  static constexpr int kAPitch = kARow + 4;  // 4 x odd
+  static constexpr int kCiPitch = (kWinRows * kWinCols + 23) / 32 * 32 + 8;  // 8 mod 32
+  static constexpr int kAStage = kBM * kAPitch;
+  static constexpr int kStage = kAStage + kCi * kCiPitch;
+  static constexpr int kPieces = kARow / 4;  // 16-byte pieces of a weight row
+  static constexpr int kW16PerThread = (kBM * kPieces + kThreads - 1) / kThreads;
+  static constexpr int kW4PerThread = (kBM * kARow + kThreads - 1) / kThreads;
+  static constexpr int kRed = (WK - 1) * WM * WN * 32 * 32;  // the groups' sums
+  static constexpr int kSmemFloats = kStages * kStage > kRed ? kStages * kStage : kRed;
+  static_assert(WM * WN * WK == kWarps, "8 warps");
+  static_assert(kAPitch % 8 == 4, "A fragments: 8 rows x 4 columns on 32 banks");
+  static_assert(kCiPitch % 32 == 8 && kCiPitch >= kWinRows * kWinCols, "B fragments");
+  static_assert(kAStage % 4 == 0 && kStage % 4 == 0, "16-byte aligned stages");
+};
 
-  const int tid = threadIdx.x;
-  const int cog = tid / 32;        // this thread's 8 output channels: cog*8 ..
-  const int pg = tid % 32;
-  const int r = pg / 4;            // output row within the tile
-  const int cq = (pg % 4) * 8;     // first of 8 output frames within the tile
+template <int KS, int WM, int WN, int WK>
+__device__ __forceinline__ void igemm_body(const ConvArgs& a) {
+  using Tl = Tile<KS, WM, WN, WK>;
+  constexpr int kHalo = KS / 2;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float stats_s[WN][4 * WM][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wn = (warp / WM) % WN, wk = warp / (WM * WN);
+  const int H = a.H, T = a.T;
   const int tiles_t = ceil_div(T, kCols);
-  const int h0 = (blockIdx.x / tiles_t) * kRows;
+  const int h0 = (blockIdx.x / tiles_t) * Tl::kRows;
   const int t0 = (blockIdx.x % tiles_t) * kCols;
-  const int co0 = blockIdx.y * kCoTile;
+  const int co0 = blockIdx.y * Tl::kBM;
   const int b = blockIdx.z;
-  const int len = lengths[b];
-  const int Cin = c0 + c1;
+  const int len = a.lengths != nullptr ? min(a.lengths[b], T) : T;
+  const int Cin = a.c0 + a.c1;
+  const size_t plane = (size_t)H * T;
+  const float* xb0 = a.x0 + (size_t)b * a.c0 * plane;
+  const float* xb1 = a.c1 > 0 ? a.x1 + (size_t)b * a.c1 * plane : a.x0;
+  const int w_row = Cin * Tl::kTaps;  // weights of one output channel
+  const float* wb = a.w + (size_t)co0 * w_row;
+  const bool w16 = Cin % 4 == 0;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // window staging: warp w copies the chunk's channels w, w + 8, ..., all
+  // rows; lane l takes window column l (lanes l < KS - 1 also column 32 + l)
+  const int col_a = t0 - kHalo + lane, col_b = t0 - kHalo + kCols + lane;
+  const bool ok_a = col_a >= 0 && col_a < len;
+  const bool ok_b = lane < KS - 1 && col_b < len;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += kCiStep) {
-    constexpr int kPlane = (kRows + 2) * (kCols + 2);
-    for (int i = tid; i < kCiStep * kPlane; i += kThreads) {
-      const int ci = i / kPlane;
-      const int rr = (i % kPlane) / (kCols + 2);
-      const int cc = (i % kPlane) % (kCols + 2);
-      const int gci = ci0 + ci, row = h0 - 1 + rr, t = t0 - 1 + cc;
-      float v = 0.f;
-      if (gci < Cin && row >= 0 && row < H && t >= 0 && t < T && t < len)
-        v = load_chunked(x0, c0, x1, c1, b, gci, row, t, H, T);
-      in_s[ci][rr][cc] = v;
-    }
-    for (int i = tid; i < kCiStep * 9 * kCoTile; i += kThreads) {
-      const int co = i % kCoTile;
-      const int k = (i / kCoTile) % 9;
-      const int ci = i / (kCoTile * 9);
-      const int gci = ci0 + ci;
-      w_s[ci][k][co] = gci < Cin ? w[((size_t)(co0 + co) * Cin + gci) * 9 + k] : 0.f;
-    }
-    __syncthreads();
-    for (int ci = 0; ci < kCiStep; ++ci) {
+  auto load = [&](int chunk, int slot) {
+    float* As = smem + slot * Tl::kStage;
+    float* Bs = As + Tl::kAStage;
+    const int ci0 = chunk * Tl::kCi;
+    const int j0 = ci0 * Tl::kTaps;  // first K index of the chunk
+    if (w16) {
 #pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        float xin[10];
-#pragma unroll
-        for (int j = 0; j < 10; ++j) xin[j] = in_s[ci][r + kh][cq + j];
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const float4 wa = *reinterpret_cast<const float4*>(&w_s[ci][kh * 3 + kw][cog * 8]);
-          const float4 wb = *reinterpret_cast<const float4*>(&w_s[ci][kh * 3 + kw][cog * 8 + 4]);
-          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], xin[j + kw], acc[i][j]);
+      for (int k = 0; k < Tl::kW16PerThread; ++k) {
+        const int i = tid + k * kThreads;
+        if (i < Tl::kBM * Tl::kPieces) {
+          const int co = i / Tl::kPieces, q = i % Tl::kPieces;
+          const bool ok = j0 + 4 * q < w_row;  // Cin % 4 == 0: a piece is all in or all out
+          cp_async16(As + co * Tl::kAPitch + 4 * q,
+                     ok ? wb + (size_t)co * w_row + j0 + 4 * q : a.w, ok);
+        }
+      }
+    } else {
+      for (int k = 0; k < Tl::kW4PerThread; ++k) {
+        const int i = tid + k * kThreads;
+        if (i < Tl::kBM * Tl::kARow) {
+          const int co = i / Tl::kARow, j = i % Tl::kARow;
+          const bool ok = j0 + j < w_row;
+          cp_async4(As + co * Tl::kAPitch + j, ok ? wb + (size_t)co * w_row + j0 + j : a.w, ok);
         }
       }
     }
+#pragma unroll
+    for (int c = 0; c < WK; ++c) {
+      const int cl = warp + kWarps * c, ci = ci0 + cl;
+      const float* src = ci < a.c0 ? xb0 + (size_t)ci * plane : xb1 + (size_t)(ci - a.c0) * plane;
+      float* dst = Bs + cl * Tl::kCiPitch + lane;
+#pragma unroll
+      for (int rr = 0; rr < Tl::kWinRows; ++rr) {
+        const int row = h0 - kHalo + rr;
+        const bool rok = ci < Cin && row >= 0 && row < H;
+        const float* s = src + (ptrdiff_t)row * T;
+        cp_async4(dst + rr * Tl::kWinCols, rok && ok_a ? s + col_a : a.x0, rok && ok_a);
+        if (KS > 1 && lane < KS - 1)
+          cp_async4(dst + rr * Tl::kWinCols + kCols, rok && ok_b ? s + col_b : a.x0,
+                    rok && ok_b);
+      }
+    }
+  };
+
+  float acc[2][4][4];  // [m16 tile][n8 tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+  const int n_chunks = ceil_div(Cin, Tl::kCi);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_chunks) load(s, s);
+    cp_async_commit();
+  }
+  // this warp's fragments: A rows 32 wm + g (+8, +16, +24), K columns
+  // (8 wk + t) taps + tap (+4 channels); B channel 8 wk + t (+4), window row
+  // wn + kh, column 8 nt + g + kw
+  const float* Aw0 = smem + (32 * wm + g) * Tl::kAPitch + (8 * wk + t) * Tl::kTaps;
+  const float* Bw0 = smem + Tl::kAStage + (8 * wk + t) * Tl::kCiPitch + wn * Tl::kWinCols + g;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c has landed, and every warp is done with chunk c-1
+    if (c + kStages - 1 < n_chunks) load(c + kStages - 1, (c + kStages - 1) % kStages);
+    cp_async_commit();
+    const float* Aw = Aw0 + (c % kStages) * Tl::kStage;
+    const float* Bw = Bw0 + (c % kStages) * Tl::kStage;
+#pragma unroll
+    for (int kh = 0; kh < KS; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < KS; ++kw) {
+        const int tap = kh * KS + kw;
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* p = Aw + 16 * mt * Tl::kAPitch + tap;
+          split_tf32(p[0], ah[mt][0], al[mt][0]);
+          split_tf32(p[8 * Tl::kAPitch], ah[mt][1], al[mt][1]);
+          split_tf32(p[4 * Tl::kTaps], ah[mt][2], al[mt][2]);
+          split_tf32(p[8 * Tl::kAPitch + 4 * Tl::kTaps], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int off = kh * Tl::kWinCols + kw + 8 * nt;
+          split_tf32(Bw[off], bh[nt][0], bl[nt][0]);
+          split_tf32(Bw[4 * Tl::kCiPitch + off], bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma3(acc[mt], ah[mt], al[mt], bh, bl);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  if (WK > 1) {  // group wk > 0 hands its sums to group 0, added in the order of wk
+    const int wmn = warp % (WM * WN);
+    if (wk > 0) {
+      float* r = smem + ((wk - 1) * WM * WN + wmn) * 1024 + lane;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) r[32 * v] = acc[v / 16][(v / 4) % 4][v % 4];
+    }
     __syncthreads();
+    if (wk == 0) {
+      for (int kk = 1; kk < WK; ++kk) {
+        const float* r = smem + ((kk - 1) * WM * WN + wmn) * 1024 + lane;
+#pragma unroll
+        for (int v = 0; v < 32; ++v) acc[v / 16][(v / 4) % 4][v % 4] += r[32 * v];
+      }
+    }
   }
 
-  // epilogue: bias, store, and this thread's share of the group statistics
-  // (its 8 channels lie in one group: group widths are multiples of 8)
-  float s1 = 0.f, s2 = 0.f;
-  const int row = h0 + r;
+  // epilogue (group 0): bias, the Rezero form or the raw store, and this
+  // lane's share of the GroupNorm partials of its four 8-channel slots
+  const int row = h0 + wn;
+  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  if (wk == 0 && row < H) {
+    const float gain = a.resid != nullptr ? a.gain[0] : 0.f;
+    const bool vec = !(T & 1);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int co = co0 + cog * 8 + i;
-    const float bv = bias[co];
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = t0 + cq + j;
-      if (row < H && t < T) {
-        const float v = acc[i][j] + bv;
-        out[((size_t)(b * Cout + co) * H + row) * T + t] = v;
-        if (!masked_stats || t < len) {
-          s1 += v;
-          s2 += v * v;
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + 32 * wm + 16 * mt + 8 * h + g;
+        const float bv = a.bias != nullptr ? a.bias[co] : 0.f;
+        const size_t o = ((size_t)(b * a.Cout + co) * H + row) * T;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = t0 + 8 * nt + 2 * t;
+          if (col >= T) continue;
+          const bool two = col + 1 < T;
+          float v0 = acc[mt][nt][2 * h] + bv, v1 = acc[mt][nt][2 * h + 1] + bv;
+          if (a.resid != nullptr) {
+            v0 = a.resid[o + col] + gain * v0;
+            v1 = two ? a.resid[o + col + 1] + gain * v1 : 0.f;
+          }
+          float* p = a.out + o + col;
+          if (vec && two) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (two) p[1] = v1;
+          }
+          if (!a.masked_stats || col < len) {
+            s1[mt][h] += v0;
+            s2[mt][h] += v0 * v0;
+          }
+          if (two && (!a.masked_stats || col + 1 < len)) {
+            s1[mt][h] += v1;
+            s2[mt][h] += v1 * v1;
+          }
         }
       }
     }
   }
-  red_s[tid][0] = s1;
-  red_s[tid][1] = s2;
+  if (a.partial == nullptr) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        s1[mt][h] += __shfl_xor_sync(0xffffffffu, s1[mt][h], m);
+        s2[mt][h] += __shfl_xor_sync(0xffffffffu, s2[mt][h], m);
+      }
+      if (wk == 0 && lane == 0) {
+        stats_s[wn][4 * wm + 2 * mt + h][0] = s1[mt][h];
+        stats_s[wn][4 * wm + 2 * mt + h][1] = s2[mt][h];
+      }
+    }
+  }
   __syncthreads();
-  if (pg == 0) {
-    float a = 0.f, q = 0.f;
-    for (int k = 0; k < 32; ++k) {
-      a += red_s[tid + k][0];
-      q += red_s[tid + k][1];
+  if (tid < 4 * WM) {  // one partial per 8-channel slot and tile: the rows in order
+    float x = 0.f, q = 0.f;
+#pragma unroll
+    for (int r = 0; r < WN; ++r) {
+      x += stats_s[r][tid][0];
+      q += stats_s[r][tid][1];
     }
-    const int slot = blockIdx.y * (kCoTile / 8) + cog;
-    float* dst = partial + (((size_t)b * (Cout / 8) + slot) * gridDim.x + blockIdx.x) * 2;
-    dst[0] = a;
+    const int slot = co0 / 8 + tid;
+    float* dst = a.partial + (((size_t)b * (a.Cout / 8) + slot) * gridDim.x + blockIdx.x) * 2;
+    dst[0] = x;
     dst[1] = q;
   }
+}
+
+template <int WM, int WN, int WK>
+__global__ void __launch_bounds__(kThreads, 2) conv3x3_kernel(const ConvArgs a) {
+  igemm_body<3, WM, WN, WK>(a);
+}
+
+template <int WM, int WN, int WK>
+__global__ void __launch_bounds__(kThreads, 2) conv1x1_kernel(const ConvArgs a) {
+  igemm_body<1, WM, WN, WK>(a);
+}
+
+// The three tiles, largest first: (WM, WN, WK).
+constexpr int kTileShapes[3][3] = {{2, 4, 1}, {2, 2, 2}, {1, 2, 4}};
+
+int tile_blocks(int cfg, int B, int Cout, int H, int T) {
+  const int wm = kTileShapes[cfg][0], wn = kTileShapes[cfg][1];
+  return ceil_div(H, wn) * ceil_div(T, kCols) * (Cout / (32 * wm)) * B;
+}
+
+// The first tile that gives every SM a block (the last one where none does),
+// or minus a CUDA error code.
+int pick_tile(int B, int Cout, int H, int T) {
+  const int sms = sm_count();
+  if (sms < 0) return sms;
+  for (int cfg = 0; cfg < 2; ++cfg)
+    if (tile_blocks(cfg, B, Cout, H, T) >= sms) return cfg;
+  return 2;
+}
+
+template <int KS, int WM, int WN, int WK>
+int launch_tile(const ConvArgs& a, int B, cudaStream_t stream) {
+  using Tl = Tile<KS, WM, WN, WK>;
+  void (*kernel)(const ConvArgs) = KS == 3 ? conv3x3_kernel<WM, WN, WK> : conv1x1_kernel<WM, WN, WK>;
+  const size_t smem = sizeof(float) * Tl::kSmemFloats;
+  static const int attr = set_smem(kernel, smem);
+  if (attr) return attr;
+  const dim3 grid(ceil_div(a.H, WN) * ceil_div(a.T, kCols), a.Cout / Tl::kBM, B);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  ARTTTS_CHECK_LAUNCH();
+  return 0;
+}
+
+template <int KS>
+int launch_conv(const ConvArgs& a, int B, void* stream) {
+  if (a.Cout % 64 || a.c0 < 1 || a.c1 < 0 || a.H < 1 || a.T < 1)
+    return (int)cudaErrorInvalidValue;
+  const int cfg = pick_tile(B, a.Cout, a.H, a.T);
+  if (cfg < 0) return -cfg;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cfg == 0) return launch_tile<KS, 2, 4, 1>(a, B, s);
+  if (cfg == 1) return launch_tile<KS, 2, 2, 2>(a, B, s);
+  return launch_tile<KS, 1, 2, 4>(a, B, s);
 }
 
 // Per (group, batch): reduce the conv's partials in a fixed order (double
@@ -219,86 +459,6 @@ gn_act_kernel(const float* __restrict__ h, const float* __restrict__ stats,
     v *= m;
     if (res != nullptr) v += res_masked ? res[i] * m : res[i];
     out[i] = v;
-  }
-}
-
-// 1x1 convolution as a tiled product over channels, per batch:
-//   acc[b, co, p] = sum_ci w[co, ci] * x[b, ci, p]   (x from two chunks,
-//   masked to frames t < lengths[b] when `lengths` is given)
-//   out = acc + bias                       (resid == nullptr)
-//   out = resid + gain[0] * (acc + bias)   (Rezero epilogue)
-// Grid: (ceil(P / 128), Cout / 64, B), P = H*T.
-constexpr int kPwP = 128;
-constexpr int kPwK = 16;
-
-__global__ void __launch_bounds__(kThreads)
-pointwise_kernel(const float* __restrict__ x0, int c0, const float* __restrict__ x1, int c1,
-                 const int* __restrict__ lengths, const float* __restrict__ w,
-                 const float* __restrict__ bias, const float* __restrict__ resid,
-                 const float* __restrict__ gain, float* __restrict__ out, int Cout,
-                 int P, int T) {
-  __shared__ __align__(16) float w_s[kPwK][kCoTile];
-  __shared__ __align__(16) float x_s[kPwK][kPwP];
-  const int tid = threadIdx.x;
-  const int cog = tid / 32;
-  const int pq = (tid % 32) * 4;
-  const int p0 = blockIdx.x * kPwP;
-  const int co0 = blockIdx.y * kCoTile;
-  const int b = blockIdx.z;
-  const int Cin = c0 + c1;
-  const int len = lengths != nullptr ? lengths[b] : T;
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += kPwK) {
-    for (int i = tid; i < kPwK * kCoTile; i += kThreads) {
-      const int co = i % kCoTile, k = i / kCoTile;
-      const int gci = ci0 + k;
-      w_s[k][co] = gci < Cin ? w[(size_t)(co0 + co) * Cin + gci] : 0.f;
-    }
-    for (int i = tid; i < kPwK * kPwP; i += kThreads) {
-      const int p = i % kPwP, k = i / kPwP;
-      const int gci = ci0 + k, gp = p0 + p;
-      float v = 0.f;
-      if (gci < Cin && gp < P && gp % T < len) {
-        v = gci < c0 ? x0[((size_t)b * c0 + gci) * P + gp]
-                     : x1[((size_t)b * c1 + gci - c0) * P + gp];
-      }
-      x_s[k][p] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kPwK; ++k) {
-      const float4 wa = *reinterpret_cast<const float4*>(&w_s[k][cog * 8]);
-      const float4 wb = *reinterpret_cast<const float4*>(&w_s[k][cog * 8 + 4]);
-      const float4 xv4 = *reinterpret_cast<const float4*>(&x_s[k][pq]);
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-      const float xv[4] = {xv4.x, xv4.y, xv4.z, xv4.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const float g = resid != nullptr ? gain[0] : 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int co = co0 + cog * 8 + i;
-    const float bv = bias != nullptr ? bias[co] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + pq + j;
-      if (p < P) {
-        const size_t o = ((size_t)b * Cout + co) * P + p;
-        const float v = acc[i][j] + bv;
-        out[o] = resid != nullptr ? resid[o] + g * v : v;
-      }
-    }
   }
 }
 
@@ -455,19 +615,39 @@ attn_qctx_kernel(const float* __restrict__ qkv, const float* __restrict__ ctx,
 // Launchers (plain C interface; the Python wrapper checks shapes and types)
 // ---------------------------------------------------------------------------
 
-extern "C" int conv3x3_stats(const float* x0, int c0, const float* x1, int c1,
-                             const int* lengths, const float* w, const float* bias,
-                             float* out, float* partial, int B, int H, int T, int Cout,
-                             int masked_stats, void* stream) {
-  const dim3 grid(ceil_div(H, kRows) * ceil_div(T, kCols), Cout / kCoTile, B);
-  conv3x3_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x0, c0, x1, c1, lengths, w, bias, out, partial, H, T, Cout, masked_stats);
-  ARTTTS_CHECK_LAUNCH();
-  return 0;
+// Pixel tiles (grid x) of a product launch at this shape, or minus a CUDA
+// error code: the GroupNorm partials hold one entry per tile.
+extern "C" int conv_tiles(int B, int Cout, int H, int T) {
+  const int cfg = pick_tile(B, Cout, H, T);
+  return cfg < 0 ? cfg : ceil_div(H, kTileShapes[cfg][1]) * ceil_div(T, kCols);
 }
 
-extern "C" int conv3x3_tiles(int H, int T) {
-  return ceil_div(H, kRows) * ceil_div(T, kCols);
+// Blocks of a product launch at this shape, or minus a CUDA error code.
+extern "C" int conv_blocks(int B, int Cout, int H, int T) {
+  const int cfg = pick_tile(B, Cout, H, T);
+  return cfg < 0 ? cfg : tile_blocks(cfg, B, Cout, H, T);
+}
+
+// 3x3 convolution, stride 1, zero padding 1, on the masked input (frames
+// t >= lengths[b] read as zero), plus bias; writes the raw output and the
+// GroupNorm partials (B, Cout / 8, conv_tiles, 2).
+extern "C" int conv3x3(const float* x0, int c0, const float* x1, int c1, const int* lengths,
+                       const float* w, const float* bias, float* out, float* partial, int B,
+                       int H, int T, int Cout, int masked_stats, void* stream) {
+  const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, nullptr, nullptr, out, partial,
+                   H, T, Cout, masked_stats};
+  return launch_conv<3>(a, B, stream);
+}
+
+// 1x1 convolution: out = W x + bias (bias may be null), or the Rezero form
+// out = resid + gain[0] * (W x + bias) when `resid` is given; x masked to
+// frames t < lengths[b] when `lengths` is given.
+extern "C" int conv1x1(const float* x0, int c0, const float* x1, int c1, const int* lengths,
+                       const float* w, const float* bias, const float* resid, const float* gain,
+                       float* out, int B, int Cout, int H, int T, void* stream) {
+  const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, resid, gain, out, nullptr,
+                   H, T, Cout, 0};
+  return launch_conv<1>(a, B, stream);
 }
 
 extern "C" int gn_stats(const float* partial, const int* lengths, float* stats, int B,
@@ -488,18 +668,6 @@ extern "C" int gn_act(const float* h, const float* stats, const float* gamma,
                                                                  : 4096);
   gn_act_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       h, stats, gamma, beta, temb, res, res_masked, lengths, out, B, C, H, T);
-  ARTTTS_CHECK_LAUNCH();
-  return 0;
-}
-
-extern "C" int pointwise(const float* x0, int c0, const float* x1, int c1,
-                         const int* lengths, const float* w, const float* bias,
-                         const float* resid, const float* gain, float* out, int B,
-                         int Cout, int H, int T, void* stream) {
-  const int P = H * T;
-  const dim3 grid(ceil_div(P, kPwP), Cout / kCoTile, B);
-  pointwise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x0, c0, x1, c1, lengths, w, bias, resid, gain, out, Cout, P, T);
   ARTTTS_CHECK_LAUNCH();
   return 0;
 }

@@ -70,85 +70,26 @@
 // shared memory and writes the interleaved 4 x 32 output patch of each
 // channel with 16-byte stores. No atomics and no split K: every output is
 // summed in one fixed order, so a call gives the same bits on every run.
-#include <stdint.h>
-
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using arttts::ceil_div;
+using arttts::cp_async16;
+using arttts::cp_async4;
+using arttts::cp_async_commit;
+using arttts::cp_async_wait;
+using arttts::mma3;
+using arttts::set_smem;
+using arttts::sm_count;
+using arttts::split_tf32;
 
 constexpr int kWarps = 8;
 constexpr int kThr = 32 * kWarps;
 constexpr int kStages = 2;
 constexpr int kCi = 8;  // input channels per pipeline chunk: one k8 MMA step per tap
 constexpr int kCoTile = 64;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte copy; `valid` false writes a zero (src-size 0, nothing is read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo: hi = tf32(x), lo = x - hi exactly (a float32). The tensor
-// core reads the top 19 bits of a TF32 operand's register, so lo enters the
-// product truncated to TF32: hi + lo then holds x to 2^-21 relative.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[n] += a*b[n] over n tiles in 3xTF32: the small terms first, the large
-// one last; pass-major, so consecutive mma's write different accumulators
-template <int N>
-__device__ __forceinline__ void mma3(float (&acc)[N][4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[N][2],
-                                     const uint32_t (&bl)[N][2]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bh[n]);
-}
-
-// Fragments of m16n8k8 (PTX ISA), lane = 4*g + t: A a0 (g, t), a1 (g+8, t),
-// a2 (g, t+4), a3 (g+8, t+4); B b0 (k=t, n=g), b1 (t+4, g); C c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
 
 // ---- K2: 3x3 stride 2 --------------------------------------------------
 // Block: 64 output channels x R (4 or 2) output rows x 16 output columns,
@@ -458,23 +399,6 @@ convt_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
       for (int e = 0; e < 4 && ox + e < To; ++e) p[e] = s[e];
     }
   }
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
-// the card's SM count (or minus a CUDA error code), read once
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return e == cudaSuccess ? v : -(int)e;
-  }();
-  return n;
 }
 
 struct DnArgs {

@@ -43,11 +43,12 @@ _F = ctypes.c_float
 # argument types of every launcher, by library
 SIGNATURES = {
     "resblock2d": {
-        "conv3x3_stats": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "conv3x3_tiles": (_I, _I),
+        "conv3x3": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "conv1x1": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "conv_tiles": (_I, _I, _I, _I),
+        "conv_blocks": (_I, _I, _I, _I),
         "gn_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "gn_act": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
-        "pointwise": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "attn_chunks": (_I,),
         "attention_core": (_P, _P, _P, _P, _P, _I, _I, _P),
     },
@@ -83,7 +84,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

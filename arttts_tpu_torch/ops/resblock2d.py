@@ -19,10 +19,14 @@ Layout: images (B, C, H, T) float32; the block input may come as a list of
 channel chunks (the up path's skip concatenation is never materialised).
 
 What bounds it on the H100, and what the design does about it, is in the
-note at the top of `csrc/resblock2d.cu`: the convolutions are compute-bound
-float32 work on the CUDA cores; GroupNorm's image-wide statistics are
-per-tile partial sums reduced in a second, fixed-order pass (no atomics, so
-runs are deterministic).
+note at the top of `csrc/resblock2d.cu`. Its 3x3 and 1x1 products
+(`conv3x3`, `conv1x1`) are implicit GEMMs on the tensor cores in 3xTF32
+(float32 accuracy from three TF32 passes), bound by the tensor cores' rate;
+the launcher picks per shape the largest tile that gives every SM a block.
+GroupNorm's image-wide statistics are per-tile partial sums from the 3x3
+epilogue, reduced in a second, fixed-order pass (no atomics, so a call
+gives the same bits every run); normalisation, mish, the time embedding and
+the attention core are small kernels of their own.
 
 `resblock2d` runs the plain version for tensors on the CPU and the kernels
 for tensors on a CUDA device; anything else raises.
@@ -114,6 +118,14 @@ def rezero_attention_plain(x: torch.Tensor, a: AttnWeights) -> torch.Tensor:
     return x + a.gain * proj
 
 
+def _conv3x3(x, w, b):
+    return F.conv2d(x, w, b, padding=1)
+
+
+def _conv1x1(x, w, b):
+    return torch.einsum("oc,bchw->bohw", w, x) + b[:, None, None]
+
+
 def resblock2d_plain(
     xs: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -127,20 +139,27 @@ def resblock2d_plain(
     """The plain PyTorch version of `resblock2d` (same arguments)."""
     if xs[0].is_cuda:
         resblock2d_plain.cuda_calls += 1
+    return block_with_products(xs, lengths, temb, w, masked_stats=masked_stats, eps=eps,
+                               attn=attn)
+
+
+def block_with_products(xs, lengths, temb, w, *, masked_stats, eps, attn=None,
+                        conv3x3=_conv3x3, conv1x1=_conv1x1):
+    """`resblock2d_plain`'s computation with its block products given as
+    functions (input, weight, bias) -> output: the two 3x3 convolutions
+    (zero padding 1) and the residual projection. The tests hand it
+    emulations of the kernels' arithmetic."""
     x = torch.cat(list(xs), dim=1) if len(xs) > 1 else xs[0]
     m = frame_mask(lengths, x.shape[-1], x.dtype)
     xm = x * m
-    h = F.conv2d(xm, w.w1, w.b1, padding=1)
+    h = conv3x3(xm, w.w1, w.b1)
     h = mish(group_norm(h, m, masked_stats, eps, w.gn1_w, w.gn1_b))
     if w.w2 is None:
         return h * m
     h = (h + temb[:, :, None, None]) * m
-    h = F.conv2d(h, w.w2, w.b2, padding=1)
+    h = conv3x3(h, w.w2, w.b2)
     h = mish(group_norm(h, m, masked_stats, eps, w.gn2_w, w.gn2_b)) * m
-    if w.w_res is None:
-        res = xm
-    else:
-        res = torch.einsum("oc,bchw->bohw", w.w_res, xm) + w.b_res[:, None, None]
+    res = xm if w.w_res is None else conv1x1(xm, w.w_res, w.b_res)
     y = h + res
     return y if attn is None else rezero_attention_plain(y, attn)
 
@@ -196,6 +215,8 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     c_out = w.w1.shape[0]
     if c_out % 64:
         raise ValueError(f"c_out must be a multiple of 64, got {c_out}")
+    if min(cs) < 1 or B < 1 or H < 1 or T < 1:
+        raise ValueError(f"empty operand: chunks of {cs} channels, image {B}x{H}x{T}")
 
     def _check(t, shape, what):
         check_operand(t, shape, xs[0].device, what)
@@ -227,7 +248,9 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     s = _build.stream(xs[0])
     x0, x1 = xs[0], (xs[1] if len(xs) > 1 else None)
     c1 = cs[1] if len(xs) > 1 else 0
-    n_tiles = lib.conv3x3_tiles(H, T)
+    n_tiles = lib.conv_tiles(B, c_out, H, T)
+    if n_tiles <= 0:
+        raise RuntimeError(f"conv_tiles: CUDA error {-n_tiles}")
     new = lambda c: torch.empty((B, c, H, T), device=x0.device)  # noqa: E731
     h = new(c_out)
     part = torch.empty((B, c_out // 8, n_tiles, 2), device=x0.device)
@@ -235,7 +258,7 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     resblock2d.launches += 1
 
     def conv_norm(inputs, chans, wt, bias):
-        _build.call(lib, "conv3x3_stats", p(inputs[0]), chans[0], p(inputs[1]), chans[1],
+        _build.call(lib, "conv3x3", p(inputs[0]), chans[0], p(inputs[1]), chans[1],
                     p(lengths), p(wt), p(bias), p(h), p(part), B, H, T, c_out,
                     int(masked_stats), s)
         _build.call(lib, "gn_stats", p(part), p(lengths), p(stats), B, c_out, n_tiles,
@@ -246,6 +269,11 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
                     int(res_masked), p(lengths), p(out), B, c_out, H, T, s)
         return out
 
+    def conv1x1(inputs, chans, lens, wt, bias, resid, gain, out):
+        _build.call(lib, "conv1x1", p(inputs[0]), chans[0], p(inputs[1]), chans[1], p(lens),
+                    p(wt), p(bias), p(resid), p(gain), p(out), B, out.shape[1], H, T, s)
+        return out
+
     conv_norm((x0, x1), (cs[0], c1), w.w1, w.b1)
     if block_only:
         return act(w.gn1_w, w.gn1_b, None, None, False, new(c_out))
@@ -254,9 +282,9 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     if w.w_res is None:
         res, res_masked = x0, True
     else:
-        res, res_masked = new(c_out), False
-        _build.call(lib, "pointwise", p(x0), cs[0], p(x1), c1, p(lengths), p(w.w_res),
-                    p(w.b_res), None, None, p(res), B, c_out, H, T, s)
+        res = conv1x1((x0, x1), (cs[0], c1), lengths, w.w_res, w.b_res, None, None,
+                      new(c_out))
+        res_masked = False
     y = act(w.gn2_w, w.gn2_b, None, res, res_masked, a)  # `a` is dead: reuse it
     if attn is None:
         return y
@@ -264,15 +292,11 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     P = H * T
     hd = HEADS * DIM_HEAD
     n_chunks = lib.attn_chunks(P)
-    qkv = new(3 * hd)
-    _build.call(lib, "pointwise", p(y), c_out, None, 0, None, p(attn.w_qkv), None, None,
-                None, p(qkv), B, 3 * hd, H, T, s)
+    qkv = conv1x1((y, None), (c_out, 0), None, attn.w_qkv, None, None, None, new(3 * hd))
     kpart = torch.empty((B, hd, n_chunks, 2), device=x0.device)
     cpart = torch.empty((B, HEADS, n_chunks, DIM_HEAD, DIM_HEAD), device=x0.device)
     ctx = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), device=x0.device)
     ao = new(hd)
     _build.call(lib, "attention_core", p(qkv), p(kpart), p(cpart), p(ctx), p(ao), B, P, s)
-    out = new(c_out)
-    _build.call(lib, "pointwise", p(ao), hd, None, 0, None, p(attn.w_out), p(attn.b_out),
-                p(y), p(attn.gain), p(out), B, c_out, H, T, s)
-    return out
+    return conv1x1((ao, None), (hd, 0), None, attn.w_out, attn.b_out, y, attn.gain,
+                   new(c_out))

@@ -21,12 +21,15 @@ fatal on failure (exit code 1, no result line):
    `maximum_path` (MAS) at the training bucket (B=16, 192 x 1024, ragged),
    (1, 1), T_y = T_x, T_x > 1024 and a case of ties, bit for bit against
    its plain version and the NumPy oracle; time each (CUDA events) beside
-   its bound, plain version and library call. K2 and K3 (3xTF32 on the
-   tensor cores) run each case twice and must give the same bits; at the
-   main path's four shapes they also get their device time per call from
-   `torch.profiler`, both bounds (tensor-core route and float32 CUDA
-   cores) and their grid's block count, and a line says whether each beat
-   its library call;
+   its bound, plain version and library call. K1, K2 and K3 (3xTF32 on the
+   tensor cores) run each case twice and must give the same bits, and
+   record their grids' block counts (every main-path launch must give each
+   SM a block) and both bounds (tensor-core route and float32 CUDA cores);
+   at the main path's shapes they also get their device time per call from
+   `torch.profiler`. A line says whether each K2/K3 call beat its library
+   call; K1, which no single library call computes, gets cuDNN's time for
+   the block's 3x3 convolutions as a yardstick of one part, and a line
+   sums its calls into the kernel table's rows 1 and 2 per request;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding);
 4b. hold the full-width vocoder's fast path (K4, K5) against its module
@@ -41,7 +44,9 @@ fatal on failure (exit code 1, no result line):
    all five kernels must have run as often as the path calls them, and no
    plain version on the card;
 7. one more bench-shape request under `torch.profiler`: kernel time by
-   name and by the port's kernel it belongs to, and the card's idle share;
+   name and by the port's kernel it belongs to, K1's time by part (3x3
+   conv, 1x1 products, GroupNorm statistics and application, attention
+   core) with launches per evaluation, and the card's idle share;
 8. the SPARC articulatory vocoder at full width from a seed, through
    `vocode_sparc` (windowed and two-placement tracks), against
    `vocode_chunked` over its module path, with K4's FiLM mode and K5
@@ -248,6 +253,9 @@ def main():
             bound_by="bytes" if bytes_ms >= max(ops_ms, chain_ms) else "operations",
             bytes_ms=bytes_ms, ops_ms=ops_ms, dependent_chain_ms=chain_ms, library_ms=None))
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    k1_lib = _build.library("resblock2d")
+
     def k1_case(name, cs, c_out, H, T, lengths, attn=False, masked=True, block_only=False,
                 in_eval=True):
         B = len(lengths)
@@ -260,6 +268,8 @@ def main():
         kern = lambda: K1.resblock2d(xs, lens, temb, w, **kw)  # noqa: E731
         plain = lambda: K1.resblock2d_plain(xs, lens, temb, w, **kw)  # noqa: E731
         err, scale = compare(kern, plain)
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
         c_in, P = sum(cs), B * H * T
         flops = 2 * 9 * c_in * c_out * P
         if not block_only:
@@ -270,14 +280,32 @@ def main():
         if a is not None:
             wbytes += sum(t.numel() for t in vars(a).values())
         nbytes = 4 * (c_in * P + c_out * P + wbytes + (B * c_out if temb is not None else 0))
-        b_ms, b_by = bound(flops, nbytes)
+        # the products run on the tensor cores in three TF32 passes (3xTF32)
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound(flops, nbytes)
+        # blocks of each product launch (csrc/resblock2d.cu's launcher picks
+        # the tile per shape): the 3x3 convs, then the 1x1 products
+        blocks = k1_lib.conv_blocks(B, c_out, H, T)
+        blocks_1x1 = [k1_lib.conv_blocks(B, c_out, H, T)] if w.w_res is not None else []
+        if attn:
+            blocks_1x1 += [k1_lib.conv_blocks(B, 384, H, T), k1_lib.conv_blocks(B, c_out, H, T)]
+        # yardstick of one part: the block's 3x3 convolutions through cuDNN
+        # (TF32 off), never called by the port; not the block's function
+        x_cat = torch.cat(xs, dim=1)
+        h_mid = rnd(B, c_out, H, T)
+        convs = [(x_cat, w.w1, w.b1)] + ([] if block_only else [(h_mid, w.w2, w.b2)])
+        lib_conv = lambda: [torch.nn.functional.conv2d(i, k, bb, padding=1)  # noqa: E731
+                            for i, k, bb in convs]
         cases.append(dict(kernel="resblock2d", case=name, shape=[B, list(cs), c_out, H, T],
                           lengths=lengths, attn=attn, masked_stats=masked, block_only=block_only,
                           in_eval=in_eval, max_abs_err=err, max_abs_ref=scale,
+                          same_bits_twice=same_bits, blocks=blocks, blocks_1x1=blocks_1x1,
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None))
-
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+                          bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
+                          device_ms_per_call=device_ms(kern) if in_eval else None,
+                          library_ms=None,
+                          library_conv_ms=cuda_ms(lib_conv) if in_eval else None,
+                          library_conv_device_ms=device_ms(lib_conv) if in_eval else None))
 
     def updown_case(kernel, cin, H, T, lengths):
         B = len(lengths)
@@ -431,7 +459,8 @@ def main():
     for c in cases:
         c["ok"] = (c["max_abs_err"] <= TOL_KERNEL * max(1.0, c["max_abs_ref"])
                    and c.get("same_bits_twice", True)
-                   and not (c["in_eval"] and c.get("blocks", n_sm) < n_sm))
+                   and not (c["in_eval"]
+                            and min([c.get("blocks", n_sm)] + c.get("blocks_1x1", [])) < n_sm))
         emit({"kernel_case": c})
     for c in mas_cases:
         c["ok"] = c["exact_vs_plain"] and c["cells_off_oracle"] == 0
@@ -451,6 +480,25 @@ def main():
              library_device_ms=c["library_device_ms"],
              beat_library_on_device=c["device_ms_per_call"] <= c["library_device_ms"])
         for c in cases if c["kernel"] in ("downsample2d", "conv_transpose2d") and c["in_eval"]]})
+    # PERF.md's kernel table, rows 1 and 2: K1 per bench-shape request (50
+    # evaluations); row 1 is `resblock2d_packed`'s calls (C=64 at 80x768)
+    k1_rows = {}
+    for c in cases:
+        if c["kernel"] == "resblock2d" and c["in_eval"]:
+            row = k1_rows.setdefault(1 if c["shape"][3] == 80 else 2, dict(
+                calls_per_evaluation=0, ms=0.0, device_ms=0.0, bound_ms=0.0,
+                bound_f32_cuda_core_ms=0.0, plain_ms=0.0, library_conv_ms=0.0,
+                library_conv_device_ms=0.0, min_blocks=None))
+            row["calls_per_evaluation"] += 1
+            for k in ("ms", "bound_ms", "bound_f32_cuda_core_ms", "plain_ms", "library_conv_ms"):
+                row[k] += N_STEPS * c[k]
+            row["device_ms"] += N_STEPS * c["device_ms_per_call"]
+            row["library_conv_device_ms"] += N_STEPS * c["library_conv_device_ms"]
+            least = min([c["blocks"]] + c["blocks_1x1"])
+            row["min_blocks"] = least if row["min_blocks"] is None else min(row["min_blocks"],
+                                                                             least)
+    emit({"resblock2d_rows_per_request": {"card": card, "sms": n_sm, "steps": N_STEPS,
+                                          "rows": k1_rows}})
 
     # ---- 4. the score network: kernel path against the module path --------
     from arttts_tpu_torch.core.config import get_preset
@@ -613,8 +661,10 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     # kernel time by the port's kernel it belongs to; the rest is PyTorch's
     # own (cuDNN convolutions, GEMVs, elementwise)
-    families = {"K1 resblock2d": ("conv3x3_stats", "pointwise_kernel", "gn_stats", "gn_act",
-                                  "attn_"),
+    k1_parts = {"3x3 conv": ("conv3x3_kernel",), "1x1 products": ("conv1x1_kernel",),
+                "GroupNorm stats": ("gn_stats_kernel",), "GroupNorm apply": ("gn_act_kernel",),
+                "attention core": ("attn_",)}
+    families = {"K1 resblock2d": sum(k1_parts.values(), ()),
                 "K2 downsample2d": ("downsample_kernel",), "K3 conv_transpose2d": ("convt_kernel",),
                 "K4 mrf_stage": ("mrf_round_kernel",), "K5 upsample1d": ("upsample_kernel",)}
     by_family = dict.fromkeys(list(families) + ["other"], 0.0)
@@ -623,10 +673,17 @@ def main():
         fam = [f for f, keys in families.items() if any(key in k for key in keys)]
         by_family[fam[0] if fam else "other"] += ms
         calls[fam[0] if fam else "other"] += c
+    k1_by_part = {part: dict(ms=0.0, launches_per_evaluation=0.0) for part in k1_parts}
+    for k, (ms, c) in by_name.items():
+        part = [f for f, keys in k1_parts.items() if any(key in k for key in keys)]
+        if part:
+            k1_by_part[part[0]]["ms"] += ms
+            k1_by_part[part[0]]["launches_per_evaluation"] += c / N_STEPS
     emit({"trace": {"card": card, "request": "bench shape, 768 frames, 50 steps",
                     "wall_ms_under_profiler": wall_ms, "device_kernel_ms": busy,
                     "idle_share": (1 - busy / wall_ms) if busy else None,
                     "kernel_ms_by_family": by_family,
+                    "k1_by_part": k1_by_part,
                     # K2 and K3: 100 launches each per request (2 per evaluation)
                     "device_ms_per_call": {f: by_family[f] / calls[f] for f in
                                            ("K2 downsample2d", "K3 conv_transpose2d")
@@ -904,6 +961,13 @@ def main():
         ev = [c for c in mine if c["in_eval"]]
         lib = [c["library_ms"] for c in ev]
         updown_extra = {}
+        if name == "resblock2d":
+            updown_extra = {
+                "arithmetic": "3xTF32 on the tensor cores (mma.sync m16n8k8), float32 accumulation",
+                "bound_f32_cuda_core_ms": sum(c["bound_f32_cuda_core_ms"] for c in ev),
+                "device_ms": sum(c["device_ms_per_call"] for c in ev),
+                "library_conv_ms": sum(c["library_conv_ms"] for c in ev),
+                "library_conv_device_ms": sum(c["library_conv_device_ms"] for c in ev)}
         if name in ("downsample2d", "conv_transpose2d"):
             updown_extra = {
                 "arithmetic": "3xTF32 on the tensor cores (mma.sync m16n8k8), float32 accumulation",

@@ -6,8 +6,8 @@ times each at the U-Net's four call shapes (B=1, full lengths).
     python3 scripts/updown_variants.py [--out build/updown_variants.json]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-Variants (textual edits of the source, built with the port's nvcc flags
-into build/updown_variants/):
+Variants (textual edits of the source and of `csrc/tf32_mma.cuh`, built
+with the port's nvcc flags into build/updown_variants/<variant>/):
 - `kernel`: the source as it is;
 - `no_mma`: no tensor-core work (the split and the fragment loads go with
   it): the staging ring, the barriers and the epilogue;
@@ -33,16 +33,83 @@ ROOT = Path(__file__).resolve().parents[1]
 
 MMA3 = ("#pragma unroll\n  for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);\n"
         "#pragma unroll\n  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);\n")
+HEADER = "tf32_mma.cuh"
+# (file, text, replacement); the file is the source or the shared header
 VARIANTS = {
     "kernel": [],
-    "no_mma": [(MMA3 + "#pragma unroll\n  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bh[n]);",
-                "")],
-    "no_copies": [("    if (c + kStages - 1 < n_chunks) load(", "    if (c < 0) load(")],
-    "one_pass": [(MMA3, "")],
-    "stages3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "no_mma": [(HEADER, MMA3 + "#pragma unroll\n  for (int n = 0; n < N; ++n) "
+                "mma_tf32(acc[n], ah, bh[n]);", "")],
+    "no_copies": [(None, "    if (c + kStages - 1 < n_chunks) load(", "    if (c < 0) load(")],
+    "one_pass": [(HEADER, MMA3, "")],
+    "stages3": [(None, "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
 SHAPES = [("downsample2d", 64, 80, 768), ("downsample2d", 128, 40, 384),
           ("conv_transpose2d", 128, 20, 192), ("conv_transpose2d", 64, 40, 384)]
+
+
+def build_variants(source, variants, out_dir):
+    """Build each variant of csrc/<source>.cu (edits of the source, None,
+    or of the shared header) into out_dir/<variant>/; a variant's copy of
+    the header sits beside its source, so the include finds it first.
+    Returns ({variant: ctypes library}, {variant: ptxas lines})."""
+    from arttts_tpu_torch.ops import _build
+
+    procs = {}
+    for name, edits in variants.items():
+        files = {None: (_build.CSRC / f"{source}.cu").read_text(),
+                 HEADER: (_build.CSRC / HEADER).read_text()}
+        for f, a, b in edits:
+            if a not in files[f]:
+                sys.exit(f"variants: {name} no longer applies to {f or source + '.cu'}")
+            files[f] = files[f].replace(a, b)
+        vdir = out_dir / name
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / f"{source}.cu").write_text(files[None])
+        (vdir / HEADER).write_text(files[HEADER])
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+               str(vdir / f"{source}.so"), str(vdir / f"{source}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs, ptxas = {}, {}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            sys.exit(f"variants: {name} does not build:\n{log}")
+        ptxas[name] = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+        lib = ctypes.CDLL(str(out_dir / name / f"{source}.so"))
+        for fn, argtypes in _build.SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.arttts_error_string.argtypes = (ctypes.c_int,)
+        lib.arttts_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs, ptxas
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device ms per call of fn: CUDA events around replays of a CUDA graph
+    of n calls (no host in the loop)."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (n * reps)
 
 
 def main():
@@ -58,59 +125,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from arttts_tpu_torch.ops import _build, updown
 
-    src = (_build.CSRC / "updown.cu").read_text()
-    out_dir = ROOT / "build" / "updown_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        s = src
-        for a, b in edits:
-            if a not in s:
-                sys.exit(f"updown_variants: variant {name} no longer applies to updown.cu")
-            s = s.replace(a, b)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(s)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-               str(out_dir / f"{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs, ptxas = {}, {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            sys.exit(f"updown_variants: {name} does not build:\n{log}")
-        ptxas[name] = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn, argtypes in _build.SIGNATURES["updown"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.arttts_error_string.argtypes = (ctypes.c_int,)
-        lib.arttts_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+    libs, ptxas = build_variants("updown", VARIANTS, ROOT / "build" / "updown_variants")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-
-    def graph_ms(fn, n=20, reps=5):
-        s = torch.cuda.Stream()
-        s.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(s):
-            fn()
-        torch.cuda.current_stream().wait_stream(s)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(n):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            graph.replay()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / (n * reps)
 
     rows = []
     for kernel, c, H, T in SHAPES:

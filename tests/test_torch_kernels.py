@@ -10,10 +10,13 @@ Pallas kernels themselves (f32 dots), one of them in the masked-statistics,
 eps 1e-6 mode no module has. Inputs are numpy draws from a fixed seed;
 tolerance atol/rtol 2e-4 (float32 both sides, sums in other orders).
 
-The last tests emulate the arithmetic of K2 and K3 (`csrc/updown.cu`:
-3xTF32 on the tensor cores) on the CPU and hold it to `chip_smoke.py`'s
-kernel tolerance against the plain versions.
+The last tests emulate the arithmetic of K1, K2 and K3 (`csrc/resblock2d.cu`,
+`csrc/updown.cu`: 3xTF32 on the tensor cores) on the CPU and hold it to
+`chip_smoke.py`'s kernel tolerance against the plain versions, and check the
+guards of K1's wrapper.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 
 from arttts_tpu.models.convs import ConvTranspose2dTorch
 from arttts_tpu.models.unet2d import Block2d, Downsample2d, LinearAttention2d, ResnetBlock2d
+from arttts_tpu_torch.ops import resblock2d as K1
 from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, frame_mask, resblock2d
 from arttts_tpu_torch.ops.updown import conv_transpose2d, downsample2d
 
@@ -198,7 +202,7 @@ def test_resblock_plain_matches_pallas_interpret(wide):
     _close(got, _nchw(ref))
 
 
-# ---- the 3xTF32 arithmetic of K2 and K3 (csrc/updown.cu), emulated ------------
+# ---- the 3xTF32 arithmetic of K1, K2 and K3 (csrc/*.cu), emulated -------------
 TOL_KERNEL = 1e-4  # chip_smoke.py: max |kernel - plain| <= TOL * max(1, max |plain|)
 
 
@@ -272,6 +276,36 @@ def _k3_by_split(x, lengths, w, b, passes=3):
     return out + b[:, None, None]
 
 
+def _k1_product_by_split(x, w, b, passes=3, wk=4):
+    """K1's 3x3 or 1x1 product (`igemm_body`): per staged chunk of 8 wk input
+    channels, warp group k takes channels 8k..8k+7 and runs one k8 step per
+    tap; the groups' sums are added in the order of k, then the bias. wk = 4
+    is the tile of the deepest call (chunks (256, 256) -> 128 at 20x192)."""
+    B, C, H, T = x.shape
+    w4 = w if w.dim() == 4 else w[:, :, None, None]
+    ks = w4.shape[-1]
+    xp = F.pad(x, (ks // 2,) * 4)
+    acc = [torch.zeros(w4.shape[0], B * H * T) for _ in range(wk)]
+    for ci0 in range(0, C, 8):
+        for kh in range(ks):
+            for kw in range(ks):
+                win = xp[:, ci0:ci0 + 8, kh:kh + H, kw:kw + T]
+                _mma(acc[(ci0 // 8) % wk], w4[:, ci0:ci0 + 8, kh, kw],
+                     win.permute(1, 0, 2, 3).reshape(win.shape[1], -1), passes)
+    total = acc[0]
+    for a in acc[1:]:
+        total = total + a
+    return total.reshape(-1, B, H, T).permute(1, 0, 2, 3) + b[:, None, None]
+
+
+def _k1_by_split(xs, lengths, temb, w, passes=3, masked_stats=True, eps=1e-6):
+    """The block with K1's products emulated; GroupNorm, mish, the time
+    embedding and the residual sum through `resblock2d_plain`'s code."""
+    prod = lambda x, w_, b: _k1_product_by_split(x, w_, b, passes)  # noqa: E731
+    return K1.block_with_products(xs, lengths, temb, w, masked_stats=masked_stats, eps=eps,
+                                  conv3x3=prod, conv1x1=prod)
+
+
 def test_tf32_split_reproduces_float32():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(100_000, generator=g) * torch.exp(torch.randn(100_000, generator=g) * 4)
@@ -293,12 +327,14 @@ def test_tf32_split_reproduces_float32():
     assert (rel <= 2.0 ** -21).all() and rel.max() < err.max() * 2.0 ** -9
 
 
-@pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d"])
+@pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d", "resblock2d"])
 def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     """The kernels' arithmetic on the CPU: their decomposition in 3xTF32 meets
     TOL_KERNEL against the plain version at C=128 (K = 1,152 for K2, 512 per
-    class for K3), padded frames included; the same decomposition in one
-    TF32 pass misses it, which is why the kernels split."""
+    class for K3), padded frames included, and K1's at its deepest call,
+    chunks (256, 256) -> 128 (K = 4,608 in the first conv, 512 in the
+    residual projection); the same decomposition in one TF32 pass misses
+    it, which is why the kernels split."""
     from arttts_tpu_torch.ops import updown
 
     g = torch.Generator().manual_seed(1)
@@ -307,10 +343,27 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
         x = torch.randn(2, C, 8, 64, generator=g)
         w = torch.randn(C, C, 3, 3, generator=g) * (9 * C) ** -0.5
         emulate, plain = _k2_by_split, updown.downsample2d_plain
-    else:
+    elif kernel == "conv_transpose2d":
         x = torch.randn(2, C, 6, 64, generator=g)
         w = torch.randn(C, C, 4, 4, generator=g) * (4 * C) ** -0.5
         emulate, plain = _k3_by_split, updown.conv_transpose2d_plain
+    else:
+        x = [torch.randn(2, 256, 4, 16, generator=g) for _ in range(2)]
+        lengths = torch.tensor([16, 11], dtype=torch.int32)
+        temb = torch.randn(2, C, generator=g)
+        w = BlockWeights(
+            w1=torch.randn(C, 512, 3, 3, generator=g) * (9 * 512) ** -0.5,
+            b1=torch.randn(C, generator=g) * 0.1, gn1_w=1 + 0.1 * torch.randn(C, generator=g),
+            gn1_b=torch.randn(C, generator=g) * 0.1,
+            w2=torch.randn(C, C, 3, 3, generator=g) * (9 * C) ** -0.5,
+            b2=torch.randn(C, generator=g) * 0.1, gn2_w=1 + 0.1 * torch.randn(C, generator=g),
+            gn2_b=torch.randn(C, generator=g) * 0.1,
+            w_res=torch.randn(C, 512, generator=g) * 512 ** -0.5,
+            b_res=torch.randn(C, generator=g) * 0.1)
+        emulate = lambda x, lengths, w, b, passes=3: _k1_by_split(  # noqa: E731
+            x, lengths, temb, w, passes)
+        plain = lambda x, lengths, w, b: K1.resblock2d_plain(  # noqa: E731
+            x, lengths, temb, w, masked_stats=True, eps=1e-6)
     b = torch.randn(C, generator=g) * 0.1
     ref = plain(x, lengths, w, b)
     limit = TOL_KERNEL * max(1.0, ref.abs().max().item())
@@ -319,3 +372,95 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     assert (got - ref).abs().max().item() <= limit / 10
     one_pass = emulate(x, lengths, w, b, passes=1)
     assert (one_pass - ref).abs().max().item() > limit
+
+
+# ---- K1's wrapper: where it runs, and what it refuses before a launch ----------
+def _guard_block(c_in=64, c_out=64, attn=False):
+    w = BlockWeights(w1=torch.zeros(c_out, c_in, 3, 3), b1=torch.zeros(c_out),
+                     gn1_w=torch.ones(c_out), gn1_b=torch.zeros(c_out),
+                     w2=torch.zeros(c_out, c_out, 3, 3), b2=torch.zeros(c_out),
+                     gn2_w=torch.ones(c_out), gn2_b=torch.zeros(c_out),
+                     w_res=torch.zeros(c_out, c_in) if c_in != c_out else None,
+                     b_res=torch.zeros(c_out) if c_in != c_out else None)
+    a = (AttnWeights(gain=torch.zeros(1), w_qkv=torch.zeros(384, c_out),
+                     w_out=torch.zeros(c_out, 128), b_out=torch.zeros(c_out)) if attn else None)
+    return w, a
+
+
+def test_resblock_wrapper_runs_plain_on_cpu_and_kernels_only_on_cuda():
+    """On CPU tensors the wrapper is the plain version (no launch counted);
+    on a tensor that reports a CUDA device it goes to the kernels' library
+    (which this machine cannot build, so it raises: no fallback); any other
+    device raises."""
+    g = torch.Generator().manual_seed(2)
+    xs = [torch.randn(2, 64, 4, 16, generator=g)]
+    lens = torch.tensor([16, 9], dtype=torch.int32)
+    temb = torch.randn(2, 64, generator=g)
+    w, a = _guard_block(attn=True)
+    before = (K1.resblock2d.launches, K1.resblock2d_plain.cuda_calls)
+    got = resblock2d(xs, lens, temb, w, masked_stats=True, eps=1e-6, attn=a)
+    ref = K1.resblock2d_plain(xs, lens, temb, w, masked_stats=True, eps=1e-6, attn=a)
+    assert torch.equal(got, ref)
+    assert (K1.resblock2d.launches, K1.resblock2d_plain.cuda_calls) == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        resblock2d([xs[0].to("meta")], lens.to("meta"), temb.to("meta"), w, masked_stats=True,
+                   eps=1e-6)
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resblock2d([xs[0].as_subclass(OnCard)], lens, temb, w, masked_stats=True, eps=1e-6)
+    assert K1.resblock2d.launches == before[0]
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("three chunks", "one or two input chunks"),
+    ("c_out 96", "multiple of 64"),
+    ("empty chunk", "empty operand"),
+    ("no frames", "empty operand"),
+    ("chunk 1 rows", "input chunk 1"),
+    ("lengths int64", "lengths"),
+    ("w1 shape", "w1"),
+    ("w_res shape", "w_res"),
+    ("identity residual", "identity residual"),
+    ("w_qkv shape", "w_qkv"),
+    ("gain shape", "gain"),
+])
+def test_resblock_launcher_refuses_malformed_operands(fault, match):
+    """The CUDA side checks every operand before a pointer reaches
+    `conv3x3`/`conv1x1` (checked on CPU tensors with no library: the checks
+    raise first)."""
+    x = torch.zeros(1, 64, 4, 16)
+    lens = torch.tensor([16], dtype=torch.int32)
+    temb = torch.zeros(1, 64)
+    xs, w, a = [x], *_guard_block(attn=True)
+    if fault == "three chunks":
+        xs = [x, x, x]
+    elif fault == "c_out 96":
+        w = dataclasses.replace(w, w1=torch.zeros(96, 64, 3, 3))
+    elif fault == "empty chunk":
+        xs = [x, torch.zeros(1, 0, 4, 16)]
+    elif fault == "no frames":
+        xs = [torch.zeros(1, 64, 4, 0)]
+    elif fault == "chunk 1 rows":
+        xs = [torch.zeros(1, 32, 4, 16), torch.zeros(1, 32, 5, 16)]
+    elif fault == "lengths int64":
+        lens = lens.long()
+    elif fault == "w1 shape":
+        w = dataclasses.replace(w, w1=torch.zeros(64, 32, 3, 3))
+    elif fault == "w_res shape":
+        w, a = _guard_block(c_in=128, attn=True)
+        xs = [torch.zeros(1, 128, 4, 16)]
+        w = dataclasses.replace(w, w_res=torch.zeros(64, 64))
+    elif fault == "identity residual":
+        xs = [torch.zeros(1, 128, 4, 16)]
+        w = dataclasses.replace(w, w1=torch.zeros(64, 128, 3, 3))
+    elif fault == "w_qkv shape":
+        a = dataclasses.replace(a, w_qkv=torch.zeros(128, 64))
+    elif fault == "gain shape":
+        a = dataclasses.replace(a, gain=torch.zeros(()))
+    with pytest.raises(ValueError, match=match):
+        K1._resblock2d_cuda(None, xs, lens, temb, w, True, 1e-6, a)
