@@ -58,6 +58,7 @@ SIGNATURES = {
     },
     "mrf": {
         "mrf_round": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        "mrf_blocks": (_I, _I, _I, _I),
     },
     "upsample1d": {
         "upsample1d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -18,8 +18,12 @@ float32, C in {32, 64, 128}, kernel sizes 3, 7 and 11. The C=256 stage stays
 on the modules, as in the JAX package (`mrf_supported` there).
 
 The note at the top of `csrc/mrf.cu` says what bounds the kernel on the
-H100 and how it is tiled: one launch per (branch, round), each round's
+H100 and how it is tiled: one launch per (branch, round), both dilated
+convolutions as implicit GEMMs on the tensor cores in 3xTF32, each round's
 intermediate kept in shared memory, the branch sum added in a fixed order.
+The kernel reads each branch's weights in torch's Conv1d layout
+(C_out, C_in, k), as `stage_weights` stacks them: no copy or re-layout per
+call. It takes conv1 halos (k - 1) * dilation of up to `MAX_HALO` frames.
 
 On CPU tensors `mrf_stage` runs the plain version; on CUDA tensors the
 kernel; anything else raises.
@@ -40,6 +44,7 @@ from arttts_tpu_torch.ops.resblock2d import check_operand
 LRELU_SLOPE = 0.1
 CHANNELS = (32, 64, 128)
 KERNEL_SIZES = (3, 7, 11)
+MAX_HALO = 64  # frames of conv1's input halo, (k - 1) * dilation: csrc/mrf.cu's kMaxHalo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,25 +85,36 @@ def mrf_supported(channels: int, kernel_sizes: Sequence[int]) -> bool:
     return channels in CHANNELS and all(k in KERNEL_SIZES for k in kernel_sizes)
 
 
-def mrf_stage_plain(x: torch.Tensor, weights: Sequence[MRFBranch],
-                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """The plain PyTorch version of `mrf_stage` (same arguments)."""
-    if x.is_cuda:
-        mrf_stage_plain.cuda_calls += 1
+def _conv1d(x, w, b, dilation):
+    return F.conv1d(x, w, b, padding=dilation * (w.shape[-1] - 1) // 2, dilation=dilation)
+
+
+def stage_with_products(x: torch.Tensor, weights: Sequence[MRFBranch],
+                        film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        conv=_conv1d) -> torch.Tensor:
+    """`mrf_stage_plain`'s computation with its convolutions given as a
+    function (input, weight (C_out, C_in, k), bias, dilation) -> output with
+    SAME zero padding. The tests hand it an emulation of the kernel's
+    arithmetic."""
     out = None
     for j, br in enumerate(weights):
-        k = br.w1.shape[-1]
         xb = x
         for r, d in enumerate(br.dilations):
-            xt = F.conv1d(F.leaky_relu(xb, LRELU_SLOPE), br.w1[r], br.b1[r],
-                          padding=d * (k - 1) // 2, dilation=d)
-            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), br.w2[r], br.b2[r],
-                          padding=(k - 1) // 2)
+            xt = conv(F.leaky_relu(xb, LRELU_SLOPE), br.w1[r], br.b1[r], d)
+            xt = conv(F.leaky_relu(xt, LRELU_SLOPE), br.w2[r], br.b2[r], 1)
             if film is not None:
                 xt = xt * film[0][j, r][:, :, None] + film[1][j, r][:, :, None]
             xb = xb + xt
         out = xb if out is None else out + xb
     return out / len(weights)
+
+
+def mrf_stage_plain(x: torch.Tensor, weights: Sequence[MRFBranch],
+                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """The plain PyTorch version of `mrf_stage` (same arguments)."""
+    if x.is_cuda:
+        mrf_stage_plain.cuda_calls += 1
+    return stage_with_products(x, weights, film)
 
 
 mrf_stage_plain.cuda_calls = 0
@@ -139,6 +155,9 @@ def _mrf_stage_cuda(lib, x, weights, film):
             raise ValueError(f"branch {j}: kernel size must be one of {KERNEL_SIZES}, got {k}")
         if len(br.dilations) != n_rounds or min(br.dilations) < 1:
             raise ValueError(f"branch {j}: want {n_rounds} dilations >= 1, got {br.dilations}")
+        if (k - 1) * max(br.dilations) > MAX_HALO:
+            raise ValueError(f"branch {j}: halo (k - 1) * dilation must be <= {MAX_HALO} "
+                             f"frames, got k={k}, dilations {br.dilations}")
         for name in ("w1", "w2"):
             check_operand(getattr(br, name), (n_rounds, C, C, k), dev, f"branch {j} {name}")
         for name in ("b1", "b2"):
@@ -155,9 +174,6 @@ def _mrf_stage_cuda(lib, x, weights, film):
     mrf_stage.film_launches += film is not None
     for j, br in enumerate(weights):
         k = br.w1.shape[-1]
-        # (n_rounds, C_in, k, C_out): a chunk of input channels is one run
-        w1 = br.w1.permute(0, 2, 3, 1).contiguous()
-        w2 = br.w2.permute(0, 2, 3, 1).contiguous()
         src = x
         for r, d in enumerate(br.dilations):
             last = r == n_rounds - 1
@@ -165,7 +181,7 @@ def _mrf_stage_cuda(lib, x, weights, film):
             fa = film[0][j, r] if film is not None else None
             fb = film[1][j, r] if film is not None else None
             scale = 1.0 / n_br if last and j == n_br - 1 else 1.0
-            _build.call(lib, "mrf_round", p(src), p(w1[r]), p(br.b1[r]), p(w2[r]),
+            _build.call(lib, "mrf_round", p(src), p(br.w1[r]), p(br.b1[r]), p(br.w2[r]),
                         p(br.b2[r]), p(fa), p(fb), p(dst), B, C, k, T, d,
                         int(last and j > 0), scale, s)
             src = dst

@@ -21,15 +21,16 @@ fatal on failure (exit code 1, no result line):
    `maximum_path` (MAS) at the training bucket (B=16, 192 x 1024, ragged),
    (1, 1), T_y = T_x, T_x > 1024 and a case of ties, bit for bit against
    its plain version and the NumPy oracle; time each (CUDA events) beside
-   its bound, plain version and library call. K1, K2 and K3 (3xTF32 on the
-   tensor cores) run each case twice and must give the same bits, and
+   its bound, plain version and library call. K1, K2, K3 and K4 (3xTF32 on
+   the tensor cores) run each case twice and must give the same bits, and
    record their grids' block counts (every main-path launch must give each
    SM a block) and both bounds (tensor-core route and float32 CUDA cores);
    at the main path's shapes they also get their device time per call from
    `torch.profiler`. A line says whether each K2/K3 call beat its library
-   call; K1, which no single library call computes, gets cuDNN's time for
-   the block's 3x3 convolutions as a yardstick of one part, and a line
-   sums its calls into the kernel table's rows 1 and 2 per request;
+   call; K1 and K4, which no single library call computes, get cuDNN's
+   time for their convolutions (K1's 3x3 ones, K4's 18 per stage) as a
+   yardstick of one part, and a line sums K1's calls into the kernel
+   table's rows 1 and 2 per request;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding);
 4b. hold the full-width vocoder's fast path (K4, K5) against its module
@@ -356,6 +357,8 @@ def main():
                           library_ms=lib_ms,
                           library_device_ms=device_ms(lib) if full else None))
 
+    k4_lib = _build.library("mrf")
+
     def k4_case(name, B, C, T, ks=(3, 7, 11), film=False, in_eval=False, n=5):
         w = tuple(K4.MRFBranch(w1=rnd(3, C, C, k, scale=(k * C) ** -0.5), b1=rnd(3, C, scale=0.1),
                                w2=rnd(3, C, C, k, scale=(k * C) ** -0.5), b2=rnd(3, C, scale=0.1),
@@ -366,14 +369,36 @@ def main():
         kern = lambda: K4.mrf_stage(x, w, f)  # noqa: E731
         plain = lambda: K4.mrf_stage_plain(x, w, f)  # noqa: E731
         err, scale = compare(kern, plain)
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
         flops = 2 * 2 * C * C * B * T * 3 * sum(ks)  # two convs per round, 3 rounds
         wbytes = sum(t.numel() for br in w for t in (br.w1, br.b1, br.w2, br.b2))
         nbytes = 4 * (2 * B * C * T + wbytes + (2 * f[0].numel() if film else 0))
-        b_ms, b_by = bound(flops, nbytes)
+        # the products run on the tensor cores in three TF32 passes (3xTF32)
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound(flops, nbytes)
+        # blocks of each branch's launches (csrc/mrf.cu: NF - (k - 1) frames a block)
+        blocks = [k4_lib.mrf_blocks(B, C, k, T) for k in ks]
+        # yardstick of one part: the stage's 18 convolutions through cuDNN (TF32
+        # off), never called by the port; not the stage's function
+        convs = [(br.w1[r], br.b1[r], d * (br.w1.shape[-1] - 1) // 2, d)
+                 for br in w for r, d in enumerate(br.dilations)]
+        convs += [(br.w2[r], br.b2[r], (br.w2.shape[-1] - 1) // 2, 1)
+                  for br in w for r in range(len(br.dilations))]
+        lib_conv = lambda: [  # noqa: E731
+            torch.nn.functional.conv1d(x, k_, b_, padding=p_, dilation=d_)
+            for k_, b_, p_, d_ in convs]
         cases.append(dict(kernel="mrf_stage", case=name, shape=[B, C, T], kernel_sizes=list(ks),
                           film=film, in_eval=in_eval, max_abs_err=err, max_abs_ref=scale,
+                          same_bits_twice=same_bits, blocks=min(blocks), blocks_by_branch=blocks,
                           ms=cuda_ms(kern, n), plain_ms=cuda_ms(plain, n), bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None))
+                          bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
+                          device_ms_per_call=device_ms(kern, "mrf_round_kernel", n)
+                          if in_eval else None,
+                          library_ms=None,
+                          library_conv_ms=cuda_ms(lib_conv, n) if in_eval else None,
+                          library_conv_device_ms=device_ms(lib_conv, None, n)
+                          if in_eval else None))
 
     def k5_case(name, B, cin, cout, T, pad, outpad, in_eval=False):
         x = rnd(B, cin, T)
@@ -961,7 +986,7 @@ def main():
         ev = [c for c in mine if c["in_eval"]]
         lib = [c["library_ms"] for c in ev]
         updown_extra = {}
-        if name == "resblock2d":
+        if name in ("resblock2d", "mrf_stage"):
             updown_extra = {
                 "arithmetic": "3xTF32 on the tensor cores (mma.sync m16n8k8), float32 accumulation",
                 "bound_f32_cuda_core_ms": sum(c["bound_f32_cuda_core_ms"] for c in ev),

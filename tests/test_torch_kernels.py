@@ -10,10 +10,10 @@ Pallas kernels themselves (f32 dots), one of them in the masked-statistics,
 eps 1e-6 mode no module has. Inputs are numpy draws from a fixed seed;
 tolerance atol/rtol 2e-4 (float32 both sides, sums in other orders).
 
-The last tests emulate the arithmetic of K1, K2 and K3 (`csrc/resblock2d.cu`,
-`csrc/updown.cu`: 3xTF32 on the tensor cores) on the CPU and hold it to
-`chip_smoke.py`'s kernel tolerance against the plain versions, and check the
-guards of K1's wrapper.
+The last tests emulate the arithmetic of K1, K2, K3 and K4
+(`csrc/resblock2d.cu`, `csrc/updown.cu`, `csrc/mrf.cu`: 3xTF32 on the tensor
+cores) on the CPU and hold it to `chip_smoke.py`'s kernel tolerance against
+the plain versions, and check the guards of K1's and K4's wrappers.
 """
 
 import dataclasses
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from arttts_tpu.models.convs import ConvTranspose2dTorch
 from arttts_tpu.models.unet2d import Block2d, Downsample2d, LinearAttention2d, ResnetBlock2d
+from arttts_tpu_torch.ops import mrf
 from arttts_tpu_torch.ops import resblock2d as K1
 from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, frame_mask, resblock2d
 from arttts_tpu_torch.ops.updown import conv_transpose2d, downsample2d
@@ -225,16 +226,22 @@ def _split(a):
     return hi, _tf32_trunc(a - hi)
 
 
-def _mma(acc, a, b, passes):
+def _split_trunc(a):
+    """K4's split (`csrc/mrf.cu`): hi = a with its low 13 bits cleared, lo =
+    a - hi as the tensor core reads it."""
+    hi = _tf32_trunc(a)
+    return hi, _tf32_trunc(a - hi)
+
+
+def _mma(acc, a, b, passes, split=_split):
     """acc += a @ b as the kernels' `mma.sync` steps: 3xTF32 (lo.hi, hi.lo,
-    hi.hi, in that order) or one TF32 pass; TF32 products are exact in float32."""
+    hi.hi, in that order) or one TF32 pass (the hi halves alone); TF32
+    products are exact in float32."""
+    (ah, al), (bh, bl) = split(a), split(b)
     if passes == 3:
-        (ah, al), (bh, bl) = _split(a), _split(b)
         acc += al @ bh
         acc += ah @ bl
-        acc += ah @ bh
-    else:
-        acc += _tf32(a) @ _tf32(b)
+    acc += ah @ bh
 
 
 def _k2_by_split(x, lengths, w, b, passes=3):
@@ -306,6 +313,24 @@ def _k1_by_split(xs, lengths, temb, w, passes=3, masked_stats=True, eps=1e-6):
                                   conv3x3=prod, conv1x1=prod)
 
 
+def _k4_conv_by_split(x, w, b, dilation, passes=3):
+    """K4's dilated conv1d (`csrc/mrf.cu`): per staged chunk of 8 input
+    channels, per tap, one k8 step into one accumulator (no warp splits K),
+    then the bias; SAME zero padding at the tensor's own frame range; K4's
+    own split (hi truncated, not rounded)."""
+    B, C, T = x.shape
+    k = w.shape[-1]
+    pad = dilation * (k - 1) // 2
+    xp = F.pad(x, (pad, pad))
+    acc = torch.zeros(w.shape[0], B * T)
+    for ci0 in range(0, C, 8):
+        for tap in range(k):
+            win = xp[:, ci0:ci0 + 8, tap * dilation:tap * dilation + T]
+            _mma(acc, w[:, ci0:ci0 + 8, tap], win.permute(1, 0, 2).reshape(8, -1), passes,
+                 _split_trunc)
+    return acc.reshape(-1, B, T).permute(1, 0, 2) + b[:, None]
+
+
 def test_tf32_split_reproduces_float32():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(100_000, generator=g) * torch.exp(torch.randn(100_000, generator=g) * 4)
@@ -325,16 +350,25 @@ def test_tf32_split_reproduces_float32():
     assert torch.equal(hi_, hi) and not (lo.view(torch.int32) & 0x1FFF).any()
     rel = (hi.double() + lo.double() - x.double()).abs() / x.abs().double()
     assert (rel <= 2.0 ** -21).all() and rel.max() < err.max() * 2.0 ** -9
+    # K4's split: hi truncated (x to 2^-10 alone), hi + lo to 2^-20
+    hi_t, lo_t = _split_trunc(x)
+    assert not ((hi_t.view(torch.int32) | lo_t.view(torch.int32)) & 0x1FFF).any()
+    assert ((x - hi_t).abs() <= x.abs() * 2.0 ** -10).all() and (hi_t.abs() <= x.abs()).all()
+    rel_t = (hi_t.double() + lo_t.double() - x.double()).abs() / x.abs().double()
+    assert (rel_t <= 2.0 ** -20).all()
 
 
-@pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d", "resblock2d"])
+@pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d", "resblock2d",
+                                    "mrf_stage"])
 def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     """The kernels' arithmetic on the CPU: their decomposition in 3xTF32 meets
     TOL_KERNEL against the plain version at C=128 (K = 1,152 for K2, 512 per
-    class for K3), padded frames included, and K1's at its deepest call,
+    class for K3), padded frames included, K1's at its deepest call,
     chunks (256, 256) -> 128 (K = 4,608 in the first conv, 512 in the
-    residual projection); the same decomposition in one TF32 pass misses
-    it, which is why the kernels split."""
+    residual projection), and K4's over a whole C=128 MRF stage (k 3/7/11,
+    dilations 1/3/5, K up to 1,408, both sequence edges inside the 96
+    frames); the same decomposition in one TF32 pass misses it, which is
+    why the kernels split."""
     from arttts_tpu_torch.ops import updown
 
     g = torch.Generator().manual_seed(1)
@@ -347,7 +381,7 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
         x = torch.randn(2, C, 6, 64, generator=g)
         w = torch.randn(C, C, 4, 4, generator=g) * (4 * C) ** -0.5
         emulate, plain = _k3_by_split, updown.conv_transpose2d_plain
-    else:
+    elif kernel == "resblock2d":
         x = [torch.randn(2, 256, 4, 16, generator=g) for _ in range(2)]
         lengths = torch.tensor([16, 11], dtype=torch.int32)
         temb = torch.randn(2, C, generator=g)
@@ -364,6 +398,16 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
             x, lengths, temb, w, passes)
         plain = lambda x, lengths, w, b: K1.resblock2d_plain(  # noqa: E731
             x, lengths, temb, w, masked_stats=True, eps=1e-6)
+    else:  # K4 at chip_smoke.py's weight scales
+        x = torch.randn(2, C, 96, generator=g)
+        w = tuple(mrf.MRFBranch(
+            w1=torch.randn(3, C, C, k, generator=g) * (k * C) ** -0.5,
+            b1=torch.randn(3, C, generator=g) * 0.1,
+            w2=torch.randn(3, C, C, k, generator=g) * (k * C) ** -0.5,
+            b2=torch.randn(3, C, generator=g) * 0.1, dilations=(1, 3, 5)) for k in (3, 7, 11))
+        emulate = lambda x, lengths, w, b, passes=3: mrf.stage_with_products(  # noqa: E731
+            x, w, conv=lambda i, w_, b_, d: _k4_conv_by_split(i, w_, b_, d, passes))
+        plain = lambda x, lengths, w, b: mrf.mrf_stage_plain(x, w)  # noqa: E731
     b = torch.randn(C, generator=g) * 0.1
     ref = plain(x, lengths, w, b)
     limit = TOL_KERNEL * max(1.0, ref.abs().max().item())
@@ -464,3 +508,88 @@ def test_resblock_launcher_refuses_malformed_operands(fault, match):
         a = dataclasses.replace(a, gain=torch.zeros(()))
     with pytest.raises(ValueError, match=match):
         K1._resblock2d_cuda(None, xs, lens, temb, w, True, 1e-6, a)
+
+
+# ---- K4's wrapper: where it runs, and what it refuses before a launch ----------
+def _mrf_branch(C, k, dilations=(1, 3, 5)):
+    n = len(dilations)
+    return mrf.MRFBranch(w1=torch.zeros(n, C, C, k), b1=torch.zeros(n, C),
+                         w2=torch.zeros(n, C, C, k), b2=torch.zeros(n, C), dilations=dilations)
+
+
+def test_mrf_wrapper_runs_plain_on_cpu_and_kernels_only_on_cuda():
+    """On CPU tensors `mrf_stage` is the plain version (no launch counted);
+    on a tensor that reports a CUDA device it goes to the kernel's library
+    (which this machine cannot build, so it raises: no fallback); any other
+    device raises."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 40, generator=g)
+    w = tuple(dataclasses.replace(
+        _mrf_branch(32, k), w1=torch.randn(3, 32, 32, k, generator=g) * (k * 32) ** -0.5,
+        b2=torch.randn(3, 32, generator=g) * 0.1) for k in (3, 7, 11))
+    film = (1 + 0.3 * torch.randn(3, 3, 2, 32, generator=g), torch.randn(3, 3, 2, 32, generator=g))
+    before = (mrf.mrf_stage.launches, mrf.mrf_stage.film_launches, mrf.mrf_stage_plain.cuda_calls)
+    got = mrf.mrf_stage(x, w, film)
+    assert torch.equal(got, mrf.mrf_stage_plain(x, w, film))
+    assert not torch.equal(got, mrf.mrf_stage_plain(x, w))
+    assert (mrf.mrf_stage.launches, mrf.mrf_stage.film_launches,
+            mrf.mrf_stage_plain.cuda_calls) == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        mrf.mrf_stage(x.to("meta"), w)
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mrf.mrf_stage(x.as_subclass(OnCard), w)
+    assert mrf.mrf_stage.launches == before[0]
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("C 48", "channels"),
+    ("x 2-D", "want \\(B, C, T\\)"),
+    ("no branch", "at least one branch"),
+    ("k 5", "kernel size"),
+    ("dilations mismatched", "dilations"),
+    ("dilation 0", "dilations"),
+    ("halo 70 frames", "halo"),
+    ("w1 C_in", "branch 0 w1"),
+    ("b2 shape", "branch 1 b2"),
+    ("film batch", "film a"),
+    ("x strided", "x"),
+])
+def test_mrf_launcher_refuses_malformed_operands(fault, match):
+    """The CUDA side checks every operand before a pointer reaches
+    `mrf_round` (checked on CPU tensors with no library: the checks raise
+    first), including the kernel's own limit on conv1's halo, (k - 1) *
+    dilation <= MAX_HALO frames."""
+    x = torch.zeros(2, 64, 40)
+    w = [_mrf_branch(64, 3), _mrf_branch(64, 11)]
+    film = None
+    if fault == "C 48":
+        x, w = torch.zeros(2, 48, 40), [_mrf_branch(48, 3)]
+    elif fault == "x 2-D":
+        x = torch.zeros(64, 40)
+    elif fault == "no branch":
+        w = []
+    elif fault == "k 5":
+        w = [_mrf_branch(64, 5)]
+    elif fault == "dilations mismatched":
+        w = [w[0], _mrf_branch(64, 7, (1, 3))]
+    elif fault == "dilation 0":
+        w = [_mrf_branch(64, 3, (1, 0, 5))]
+    elif fault == "halo 70 frames":  # k = 11 at dilation 7; dilation 6 is the largest it takes
+        assert (11 - 1) * 6 <= mrf.MAX_HALO < (11 - 1) * 7
+        w = [w[0], _mrf_branch(64, 11, (1, 3, 7))]
+    elif fault == "w1 C_in":
+        w = [dataclasses.replace(w[0], w1=torch.zeros(3, 64, 32, 3)), w[1]]
+    elif fault == "b2 shape":
+        w = [w[0], dataclasses.replace(w[1], b2=torch.zeros(3, 32))]
+    elif fault == "film batch":
+        film = (torch.zeros(2, 3, 1, 64), torch.zeros(2, 3, 2, 64))
+    elif fault == "x strided":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        mrf._mrf_stage_cuda(None, x, w, film)
