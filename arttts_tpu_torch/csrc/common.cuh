@@ -1,8 +1,8 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
 // Every kernel computes to float32 accuracy: on the CUDA cores, or (K1's
-// products in resblock2d.cu, K2 and K3 in updown.cu, K4's in mrf.cu) on the
-// tensor cores in 3xTF32 (tf32_mma.cuh). Launchers are
+// products in resblock2d.cu, K2 and K3 in updown.cu, K4's in mrf.cu, K5's
+// in upsample1d.cu) on the tensor cores in 3xTF32 (tf32_mma.cuh). Launchers are
 // `extern "C"` functions with a plain C interface (bound from Python with
 // ctypes): device pointers, sizes and the caller's stream in, a CUDA error
 // code out (0 on success), checked right after each launch.

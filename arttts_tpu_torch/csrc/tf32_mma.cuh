@@ -1,6 +1,7 @@
 // Pieces shared by the port's tensor-core kernels (K1 in resblock2d.cu, K2
-// and K3 in updown.cu, K4 in mrf.cu): `cp.async` staging, the 3xTF32 split
-// and the `mma.sync.m16n8k8` TF32 product, and two launch helpers.
+// and K3 in updown.cu, K4 in mrf.cu, K5 in upsample1d.cu): `cp.async`
+// staging (K6 in mas.cu uses it too), the 3xTF32 split and the
+// `mma.sync.m16n8k8` TF32 product, and two launch helpers.
 //
 // 3xTF32 (CUTLASS's name): each operand a is split as a_hi = tf32(a)
 // (cvt.rna: round to nearest, ties away) and a_lo = a - a_hi (which the

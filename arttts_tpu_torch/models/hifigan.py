@@ -243,7 +243,7 @@ class SpkSparcHiFiGANGenerator(nn.Module):
 def _upsample(x, conv: nn.ConvTranspose1d):
     """lrelu + one upsample: K5 where it takes the shape, else the module."""
     u, k = conv.stride[0], conv.kernel_size[0]
-    if upsample_supported(u, k, conv.out_channels):
+    if upsample_supported(u, k, conv.in_channels, conv.out_channels):
         return upsample1d(x, conv.weight, conv.bias, u, conv.padding[0], conv.output_padding[0])
     return conv(leaky_relu(x))
 

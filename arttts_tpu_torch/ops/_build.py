@@ -62,9 +62,11 @@ SIGNATURES = {
     },
     "upsample1d": {
         "upsample1d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "upsample1d_blocks": (_I, _I, _I, _I, _I, _I),
     },
     "mas": {
-        "mas_path": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "mas_path": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "mas_dec_words": (_I, _I, _I),
     },
 }
 

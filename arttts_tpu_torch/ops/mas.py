@@ -17,9 +17,12 @@ Semantics are the reference's Cython DP (`core.pyx`), band, `x == y` and
 equal it bit for bit (only max and add in float32).
 
 The TPU kernel's VMEM ceiling, above which the JAX wrapper sends large
-problems to its scan, is not carried over: the kernel keeps its scratch in
-device memory and runs at every size. The note at the top of `csrc/mas.cu`
-says what bounds it and how it is laid out.
+problems to its scan, is not carried over: the kernel runs at every size
+up to `MAX_T_X` text positions, one warp an utterance up to 1,024 and
+several warps beyond, with its decision words in shared memory where they
+fit and in device memory where they do not. A second launch writes the
+path from the backtrace's text index per frame. The note at the top of
+`csrc/mas.cu` says what bounds it and how it is laid out.
 
 On CPU tensors `maximum_path` runs the plain version; on CUDA tensors the
 kernel; anything else raises.
@@ -35,7 +38,7 @@ from arttts_tpu_torch.ops import _build
 from arttts_tpu_torch.ops.resblock2d import check_operand
 
 MAX_NEG_VAL = -1e9
-MAX_T_X = 16384  # the kernel keeps two columns of T_x floats in shared memory
+MAX_T_X = 16384  # csrc/mas.cu: at most 16 warps of 32 x 32 positions an utterance
 
 
 def mas_reference_numpy(
@@ -146,10 +149,15 @@ def _maximum_path_cuda(lib, value, t_xs, t_ys):
     check_operand(value, (B, T_x, T_y), dev, "value")
     check_operand(t_xs, (B,), dev, "t_xs", torch.int32)
     check_operand(t_ys, (B,), dev, "t_ys", torch.int32)
+    n_words = lib.mas_dec_words(B, T_x, T_y)
+    if n_words < 0:
+        raise ValueError(f"value: (B, T_x, T_y) = {tuple(value.shape)} needs more decision "
+                         f"words than the kernel counts")
     path = torch.empty_like(value)
-    dec = torch.empty((B, T_y, (T_x + 31) // 32), dtype=torch.int32, device=dev)
+    idx = torch.empty((B, T_y), dtype=torch.int32, device=dev)  # text index per frame
+    dec = torch.empty((max(n_words, 1),), dtype=torch.int32, device=dev)
     maximum_path.launches += 1
     p = _build.ptr
-    _build.call(lib, "mas_path", p(value), p(t_xs), p(t_ys), p(dec), p(path), B, T_x, T_y,
-                _build.stream(value))
+    _build.call(lib, "mas_path", p(value), p(t_xs), p(t_ys), p(dec), p(idx), p(path), B, T_x,
+                T_y, _build.stream(value))
     return path

@@ -10,9 +10,12 @@ kernel evaluates the two input frames each output frame reads. Both
 paddings in use work: the mel vocoder's (k - u) // 2 and SPARC's
 u // 2 + u % 2 with output padding u % 2.
 
-The kernel takes stride 2, kernel 4 and Cout a multiple of 32
-(`upsample_supported`); the x8 upsamples stay `ConvTranspose1dTorch`, as
-XLA computes them in the JAX package. The note at the top of
+The kernel takes stride 2, kernel 4, Cout a multiple of 32 and Cin up to
+`MAX_C_IN` (`upsample_supported`); the x8 upsamples stay
+`ConvTranspose1dTorch`, as XLA computes them in the JAX package. It runs
+both phases of the upsample as one implicit GEMM on the tensor cores in
+3xTF32 (float32 accuracy, `TOL_KERNEL`), reading the weight in torch's
+(Cin, Cout, 4) layout as it is; the note at the top of
 `csrc/upsample1d.cu` says what bounds it on the H100 and how it is tiled.
 
 On CPU tensors `upsample1d` runs the plain version; on CUDA tensors the
@@ -28,11 +31,13 @@ from arttts_tpu_torch.ops import _build
 from arttts_tpu_torch.ops.resblock2d import check_operand
 
 LRELU_SLOPE = 0.1
+MAX_C_IN = 256  # csrc/upsample1d.cu's kMaxCin: a block's input window must fit
 
 
-def upsample_supported(stride: int, kernel_size: int, c_out: int) -> bool:
-    """Whether K5 takes an upsample of this stride, kernel and width."""
-    return stride == 2 and kernel_size == 2 * stride and c_out % 32 == 0
+def upsample_supported(stride: int, kernel_size: int, c_in: int, c_out: int) -> bool:
+    """Whether K5 takes an upsample of this stride, kernel and widths."""
+    return (stride == 2 and kernel_size == 2 * stride and c_out % 32 == 0
+            and 1 <= c_in <= MAX_C_IN)
 
 
 def upsample1d_plain(x, w, b, stride: int, padding: int, output_padding: int = 0):
@@ -66,15 +71,19 @@ def _upsample1d_cuda(lib, x, w, b, stride, padding, output_padding):
         raise ValueError(f"x, weight: want 3 dims, got {tuple(x.shape)}, {tuple(w.shape)}")
     B, c_in, T = x.shape
     c_out, k = w.shape[1], w.shape[2]
-    if not upsample_supported(stride, k, c_out):
-        raise ValueError(f"upsample1d takes stride 2, kernel 4 and Cout a multiple of 32, "
-                         f"got stride {stride}, kernel {k}, Cout {c_out}")
+    if not upsample_supported(stride, k, c_in, c_out):
+        raise ValueError(f"upsample1d takes stride 2, kernel 4, Cout a multiple of 32 and "
+                         f"Cin <= {MAX_C_IN}, got stride {stride}, kernel {k}, Cin {c_in}, "
+                         f"Cout {c_out}")
     if not 0 <= output_padding < stride or padding < 0:
         raise ValueError(f"padding {padding}, output_padding {output_padding} out of range")
     dev = x.device
     check_operand(x, (B, c_in, T), dev, "x")
     check_operand(w, (c_in, c_out, k), dev, "weight")
     check_operand(b, (c_out,), dev, "bias")
+    if w.data_ptr() % 16:
+        raise ValueError("weight: the kernel copies it 16 bytes at a time; want it 16-byte "
+                         "aligned")
     t_out = (T - 1) * stride - 2 * padding + k + output_padding
     if t_out <= 0:
         raise ValueError(f"no output frames for T={T}, padding {padding}")

@@ -19,15 +19,19 @@ fatal on failure (exit code 1, no result line):
    (SPARC window batches), B=2, ragged and multi-tile cases, K5
    `upsample1d` at both stride-2 upsamples in both paddings; and K6
    `maximum_path` (MAS) at the training bucket (B=16, 192 x 1024, ragged),
-   (1, 1), T_y = T_x, T_x > 1024 and a case of ties, bit for bit against
-   its plain version and the NumPy oracle; time each (CUDA events) beside
-   its bound, plain version and library call. K1, K2, K3 and K4 (3xTF32 on
-   the tensor cores) run each case twice and must give the same bits, and
+   (1, 1), T_y = T_x, t_x > t_y, T_x 33, 1,024 and 1,025 (the edges of its one-warp
+   and several-warp routes), T_y not a multiple of 32, decision words in
+   device memory, and a case of ties, bit for bit against its plain
+   version and the NumPy oracle (at the bucket also its device time by
+   kernel and the wrapper's masking alone); time each (CUDA events) beside
+   its bound, plain version and library call. K1-K5 (3xTF32 on the tensor
+   cores) run each case twice and must give the same bits, and
    record their grids' block counts (every main-path launch must give each
    SM a block) and both bounds (tensor-core route and float32 CUDA cores);
    at the main path's shapes they also get their device time per call from
    `torch.profiler`. A line says whether each K2/K3 call beat its library
-   call; K1 and K4, which no single library call computes, get cuDNN's
+   call, and one whether K5's two calls of a request did (a failure if
+   not); K1 and K4, which no single library call computes, get cuDNN's
    time for their convolutions (K1's 3x3 ones, K4's 18 per stage) as a
    yardstick of one part, and a line sums K1's calls into the kernel
    table's rows 1 and 2 per request;
@@ -244,12 +248,25 @@ def main():
         ops_ms = 8 * n / PEAK_F32_FLOPS * 1e3  # compares, selects, max, add per cell
         chain_ms = T_y * MAS_CHAIN_CYCLES / CLOCK_HZ * 1e3
         lib = _build.library("mas")
+        kernel_only = lambda: K6._maximum_path_cuda(lib, masked, tx, ty)  # noqa: E731
+        # the wrapper's own work before the launch: the masking and the length sums
+        masking = lambda: (value * mask, mask[:, :, 0].sum(1).to(torch.int32),  # noqa: E731
+                           mask[:, 0, :].sum(1).to(torch.int32))
+        # csrc/mas.cu's route: one warp an utterance up to 1,024 positions,
+        # else ceil(T_x / 1024) warps; decision words in device memory when
+        # they do not fit in shared memory
         mas_cases.append(dict(
             kernel="maximum_path", case=name, shape=[B, T_x, T_y], t_x=list(t_xs), t_y=list(t_ys),
             integer_values=integer, in_step=in_step, exact_vs_plain=bool(torch.equal(got, ref)),
             cells_off_oracle=off_oracle, max_abs_err=(got - ref).abs().max().item(),
-            ms=cuda_ms(kern), kernel_only_ms=cuda_ms(
-                lambda: K6._maximum_path_cuda(lib, masked, tx, ty)),
+            warps_per_utterance=-(-T_x // 1024),
+            words_in_device_memory=lib.mas_dec_words(B, T_x, T_y) > 0,
+            ms=cuda_ms(kern), kernel_only_ms=cuda_ms(kernel_only),
+            masking_ms=cuda_ms(masking) if in_step else None,
+            # device ms per call by part: forward and backtrace (mas_dp*), path write
+            device_ms_by_part=dict(
+                forward_and_backtrace=device_ms(kernel_only, "mas_dp"),
+                path_write=device_ms(kernel_only, "mas_path_kernel")) if in_step else None,
             plain_ms=cuda_ms(plain, n=2), bound_ms=max(bytes_ms, ops_ms, chain_ms),
             bound_by="bytes" if bytes_ms >= max(ops_ms, chain_ms) else "operations",
             bytes_ms=bytes_ms, ops_ms=ops_ms, dependent_chain_ms=chain_ms, library_ms=None))
@@ -400,6 +417,8 @@ def main():
                           library_conv_device_ms=device_ms(lib_conv, None, n)
                           if in_eval else None))
 
+    k5_lib = _build.library("upsample1d")
+
     def k5_case(name, B, cin, cout, T, pad, outpad, in_eval=False):
         x = rnd(B, cin, T)
         w, b = rnd(cin, cout, 4, scale=(2 * cin) ** -0.5), rnd(cout, scale=0.1)
@@ -408,13 +427,24 @@ def main():
         plain = lambda: K5.upsample1d_plain(x, w, b, 2, pad, outpad)  # noqa: E731
         lib = lambda: torch.nn.functional.conv_transpose1d(xl, w, b, 2, pad, outpad)  # noqa: E731
         err, scale = compare(kern, plain)
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
         t_out = (T - 1) * 2 - 2 * pad + 4 + outpad
         flops = 2 * 2 * cin * cout * B * t_out  # 2 of the 4 taps reach each output
-        b_ms, b_by = bound(flops, 4 * (B * cin * T + B * cout * t_out + w.numel() + b.numel()))
+        nbytes = 4 * (B * cin * T + B * cout * t_out + w.numel() + b.numel())
+        # the products run on the tensor cores in three TF32 passes (3xTF32)
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        f32_ms, _ = bound(flops, nbytes)
         cases.append(dict(kernel="upsample1d", case=name, shape=[B, cin, cout, T],
                           padding=[pad, outpad], in_eval=in_eval, max_abs_err=err,
-                          max_abs_ref=scale, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                          bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib)))
+                          max_abs_ref=scale, same_bits_twice=same_bits,
+                          blocks=k5_lib.upsample1d_blocks(B, cin, cout, T, pad, outpad),
+                          ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                          bound_ms=b_ms, bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
+                          device_ms_per_call=device_ms(kern, "upsample_kernel")
+                          if in_eval else None,
+                          library_ms=cuda_ms(lib),
+                          library_device_ms=device_ms(lib) if in_eval else None))
 
     # the 13 K1 calls of one score evaluation at 80x768 (masked statistics:
     # bucket 768 is one where the JAX package runs its TPU kernels)
@@ -470,15 +500,22 @@ def main():
     k5_case("padding 2, output padding 1", 2, 64, 32, 1001, 2, 1)
     k5_case("padding 0", 1, 128, 64, 999, 0, 0)
     # K6 (MAS): the training bucket (T_x ~ U[100, 190] in text bucket 192,
-    # T_y = T_x * U(2.5, 4.5) in frame bucket 1024), edges, the thread loop
-    # (T_x > 1024) and ties
+    # T_y = T_x * U(2.5, 4.5) in frame bucket 1024), edges, both routes of
+    # csrc/mas.cu (one warp an utterance up to T_x 1,024, several above),
+    # decision words in shared and in device memory, and ties
     r = np.random.default_rng(0)
     t_x = [192] + [int(v) for v in r.integers(100, 191, 15)]
     t_y = [1024] + [min(1024, int(v * r.uniform(2.5, 4.5))) for v in t_x[1:]]
     k6_case("training bucket, ragged", t_x, t_y, 192, 1024, in_step=True)
     k6_case("B=1 at (1, 1)", [1], [1], 1, 1)
     k6_case("T_y = T_x", [160, 120, 77], [160, 120, 77], 160, 160)
-    k6_case("T_x > 1024 (thread loop)", [1100, 1037], [2048, 1999], 1100, 2048)
+    k6_case("t_x > t_y (the band's tests kept)", [40, 33, 10], [25, 30, 7], 40, 30)
+    k6_case("T_x > 1024 (2 warps an utterance)", [1100, 1037], [2048, 1999], 1100, 2048)
+    k6_case("T_x = 33 (2 positions a lane), T_y % 32 != 0", [33, 20, 1], [100, 77, 5], 33, 100)
+    k6_case("T_x = 1024 (one warp, 32 positions a lane), words in device memory",
+            [1000, 613], [1100, 990], 1024, 1100)
+    k6_case("T_x = 1025 (2 warps, hand-off at x = 1024)", [1025, 1003], [1300, 1111], 1025, 1300)
+    k6_case("T_x = 1025 (2 warps), words in shared memory", [700, 512], [851, 800], 1025, 851)
     k6_case("ties (whole numbers)", [64, 50, 33, 64], [256, 200, 150, 64], 64, 256,
             integer=True)
     for c in cases:
@@ -505,6 +542,19 @@ def main():
              library_device_ms=c["library_device_ms"],
              beat_library_on_device=c["device_ms_per_call"] <= c["library_device_ms"])
         for c in cases if c["kernel"] in ("downsample2d", "conv_transpose2d") and c["in_eval"]]})
+    # PERF.md's kernel table, row 8: K5's two calls of a 768-frame request
+    # against one `F.conv_transpose1d` each on the leaky-ReLU'd input (TF32
+    # off), event-timed and on the device; K5 must not lose to it
+    k5_ev = [c for c in cases if c["kernel"] == "upsample1d" and c["in_eval"]]
+    k5_row = dict(calls=len(k5_ev), blocks=[c["blocks"] for c in k5_ev], sms=n_sm,
+                  ms=sum(c["ms"] for c in k5_ev), library_ms=sum(c["library_ms"] for c in k5_ev),
+                  device_ms=sum(c["device_ms_per_call"] for c in k5_ev),
+                  library_device_ms=sum(c["library_device_ms"] for c in k5_ev))
+    k5_row.update(beat_library=k5_row["ms"] <= k5_row["library_ms"],
+                  beat_library_on_device=k5_row["device_ms"] <= k5_row["library_device_ms"])
+    emit({"upsample_vs_library": k5_row})
+    if not (k5_row["beat_library"] and k5_row["beat_library_on_device"]):
+        fail(f"K5 is slower than F.conv_transpose1d on the main path's calls: {k5_row}")
     # PERF.md's kernel table, rows 1 and 2: K1 per bench-shape request (50
     # evaluations); row 1 is `resblock2d_packed`'s calls (C=64 at 80x768)
     k1_rows = {}
@@ -852,7 +902,7 @@ def main():
                 and not getattr(a, "is_user_annotation", False)):
             step_kernels[a.key] = (a.self_device_time_total / 1e3, a.count)
     step_busy = sum(ms for ms, _ in step_kernels.values())
-    kinds = {"K6 mas_kernel": ("mas_kernel",),
+    kinds = {"K6 mas_dp_kernel, mas_path_kernel": ("mas_dp", "mas_path_kernel"),
              "convolutions and matmuls (cuDNN, cuBLAS)": ("conv", "cudnn", "xmma", "cutlass",
                                                           "gemm", "sm90_", "wgrad", "dgrad"),
              "Adam (foreach)": ("multi_tensor_apply",), "reductions": ("reduce",),
@@ -993,7 +1043,7 @@ def main():
                 "device_ms": sum(c["device_ms_per_call"] for c in ev),
                 "library_conv_ms": sum(c["library_conv_ms"] for c in ev),
                 "library_conv_device_ms": sum(c["library_conv_device_ms"] for c in ev)}
-        if name in ("downsample2d", "conv_transpose2d"):
+        if name in ("downsample2d", "conv_transpose2d", "upsample1d"):
             updown_extra = {
                 "arithmetic": "3xTF32 on the tensor cores (mma.sync m16n8k8), float32 accumulation",
                 "bound_f32_cuda_core_ms": sum(c["bound_f32_cuda_core_ms"] for c in ev),
@@ -1029,6 +1079,8 @@ def main():
         "ms": mas_train["ms"], "plain_ms": mas_train["plain_ms"],
         "bound_ms": mas_train["bound_ms"], "bound_by": mas_train["bound_by"],
         "library_ms": None,
+        "kernel_only_ms": mas_train["kernel_only_ms"], "masking_ms": mas_train["masking_ms"],
+        "device_ms_by_part": mas_train["device_ms_by_part"],
     })
     emit({"kernels": kernels})
     print(card, flush=True)

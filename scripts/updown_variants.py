@@ -47,16 +47,20 @@ SHAPES = [("downsample2d", 64, 80, 768), ("downsample2d", 128, 40, 384),
           ("conv_transpose2d", 128, 20, 192), ("conv_transpose2d", 64, 40, 384)]
 
 
-def build_variants(source, variants, out_dir):
-    """Build each variant of csrc/<source>.cu (edits of the source, None,
-    or of the shared header) into out_dir/<variant>/; a variant's copy of
-    the header sits beside its source, so the include finds it first.
-    Returns ({variant: ctypes library}, {variant: ptxas lines})."""
+def build_variants(source, variants, out_dir, src=None, signatures=None):
+    """Build each variant of csrc/<source>.cu, or of the file `src` (edits
+    of the source, None, or of the shared header) into out_dir/<variant>/;
+    a variant's copy of the header sits beside its source, so the include
+    finds it first. Launchers are bound with `signatures` (default: the
+    port's for `source`). Returns ({variant: ctypes library}, {variant:
+    ptxas lines})."""
     from arttts_tpu_torch.ops import _build
 
+    src = Path(src) if src is not None else _build.CSRC / f"{source}.cu"
+    signatures = signatures if signatures is not None else _build.SIGNATURES[source]
     procs = {}
     for name, edits in variants.items():
-        files = {None: (_build.CSRC / f"{source}.cu").read_text(),
+        files = {None: src.read_text(),
                  HEADER: (_build.CSRC / HEADER).read_text()}
         for f, a, b in edits:
             if a not in files[f]:
@@ -78,7 +82,7 @@ def build_variants(source, variants, out_dir):
         ptxas[name] = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
         lib = ctypes.CDLL(str(out_dir / name / f"{source}.so"))
-        for fn, argtypes in _build.SIGNATURES[source].items():
+        for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.arttts_error_string.argtypes = (ctypes.c_int,)

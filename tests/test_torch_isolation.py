@@ -215,6 +215,14 @@ def test_kernel_operands_are_checked_before_launch():
         upsample._upsample1d_cuda(None, x1, w_up, torch.zeros(32), 2, 1, 2)
     with pytest.raises(ValueError, match="weight"):
         upsample._upsample1d_cuda(None, x1, torch.zeros(32, 32, 4), torch.zeros(32), 2, 1, 0)
+    with pytest.raises(ValueError, match="Cin <= 256"):
+        upsample._upsample1d_cuda(None, torch.zeros(1, 288, 40), torch.zeros(288, 32, 4),
+                                  torch.zeros(32), 2, 1, 0)
+    w_off = torch.zeros(1 + w_up.numel())[1:].view(w_up.shape)  # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        upsample._upsample1d_cuda(None, x1, w_off, torch.zeros(32), 2, 1, 0)
+    assert not upsample.upsample_supported(2, 4, 288, 32)
+    assert upsample.upsample_supported(2, 4, 128, 64) and upsample.upsample_supported(2, 4, 64, 32)
 
     from arttts_tpu_torch.ops import mas
 
@@ -234,3 +242,11 @@ def test_kernel_operands_are_checked_before_launch():
         mas._maximum_path_cuda(None, torch.zeros(2, 7, 0), tx, ty)
     with pytest.raises(ValueError, match="exceeds"):
         mas._maximum_path_cuda(None, torch.zeros(1, mas.MAX_T_X + 1, 1), tx[:1], ty[:1])
+
+    class TooManyWords:  # a library whose plan needs more words than an int counts
+        @staticmethod
+        def mas_dec_words(B, T_x, T_y):
+            return -1
+
+    with pytest.raises(ValueError, match="decision words"):
+        mas._maximum_path_cuda(TooManyWords(), v, tx, ty)

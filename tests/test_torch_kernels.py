@@ -331,6 +331,30 @@ def _k4_conv_by_split(x, w, b, dilation, passes=3):
     return acc.reshape(-1, B, T).permute(1, 0, 2) + b[:, None]
 
 
+def _k5_by_split(x, w, b, pad, outpad, passes=3):
+    """K5's polyphase GEMM (`csrc/upsample1d.cu`): rows m = 2 co + r (the
+    two output phases), depth k = 2 ci + s with A[m, k] = W[ci, co, r + 2s]
+    and B[k, n] = lrelu(x)[ci, q_lo + n - s] (zero outside [0, T)); one k8
+    step per 4 input channels into one accumulator, K4's split; then the
+    phases interleaved into output frames 2q + r - pad, and the bias."""
+    B, cin, T = x.shape
+    cout = w.shape[1]
+    t_out = (T - 1) * 2 - 2 * pad + 4 + outpad
+    q_lo, q_hi = pad // 2, (t_out - 1 + pad) // 2
+    n = q_hi - q_lo + 1
+    xp = F.pad(F.leaky_relu(x, 0.1), (1, q_hi + 1 - T))  # column c holds q = c - 1
+    a = w.permute(1, 2, 0).reshape(cout, 2, 2, cin)  # [co, s, r, ci] = W[ci, co, r + 2s]
+    a = a.permute(0, 2, 3, 1).reshape(2 * cout, 2 * cin)
+    bm = torch.stack([xp[:, :, q_lo + 1 - s:q_lo + 1 - s + n] for s in (0, 1)], dim=2)
+    bm = bm.permute(1, 2, 0, 3).reshape(2 * cin, B * n)
+    acc = torch.zeros(2 * cout, B * n)
+    for k0 in range(0, 2 * cin, 8):
+        _mma(acc, a[:, k0:k0 + 8], bm[k0:k0 + 8], passes, _split_trunc)
+    out = acc.reshape(cout, 2, B, n).permute(2, 0, 3, 1).reshape(B, cout, 2 * n)
+    first = pad - 2 * q_lo  # position of output frame 0 in the interleaved rows
+    return out[:, :, first:first + t_out] + b[:, None]
+
+
 def test_tf32_split_reproduces_float32():
     g = torch.Generator().manual_seed(0)
     x = torch.randn(100_000, generator=g) * torch.exp(torch.randn(100_000, generator=g) * 4)
@@ -359,7 +383,7 @@ def test_tf32_split_reproduces_float32():
 
 
 @pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d", "resblock2d",
-                                    "mrf_stage"])
+                                    "mrf_stage", "upsample1d", "upsample1d 64->32"])
 def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     """The kernels' arithmetic on the CPU: their decomposition in 3xTF32 meets
     TOL_KERNEL against the plain version at C=128 (K = 1,152 for K2, 512 per
@@ -367,8 +391,13 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     chunks (256, 256) -> 128 (K = 4,608 in the first conv, 512 in the
     residual projection), and K4's over a whole C=128 MRF stage (k 3/7/11,
     dilations 1/3/5, K up to 1,408, both sequence edges inside the 96
-    frames); the same decomposition in one TF32 pass misses it, which is
+    frames), and K5's polyphase GEMM at the vocoder's 128 -> 64 (K = 256)
+    and 64 -> 32 (K = 128) upsamples, ragged T, at the padding of both
+    vocoders (mel (k - u) // 2 and SPARC u // 2 + u % 2 with output padding
+    u % 2 are both 1 and 0 at stride 2) and at padding 2 with output
+    padding 1; the same decomposition in one TF32 pass misses it, which is
     why the kernels split."""
+    from arttts_tpu_torch.ops import upsample
     from arttts_tpu_torch.ops import updown
 
     g = torch.Generator().manual_seed(1)
@@ -398,6 +427,14 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
             x, lengths, temb, w, passes)
         plain = lambda x, lengths, w, b: K1.resblock2d_plain(  # noqa: E731
             x, lengths, temb, w, masked_stats=True, eps=1e-6)
+    elif kernel.startswith("upsample1d"):  # K5 at chip_smoke.py's weight scales
+        cin, T, pad, outpad = (128, 37, 1, 0) if kernel == "upsample1d" else (64, 41, 2, 1)
+        x = torch.randn(2, cin, T, generator=g)
+        w = torch.randn(cin, cin // 2, 4, generator=g) * (2 * cin) ** -0.5
+        emulate = lambda x, lengths, w, b, passes=3: _k5_by_split(  # noqa: E731
+            x, w, b[:w.shape[1]], pad, outpad, passes)
+        plain = lambda x, lengths, w, b: upsample.upsample1d_plain(  # noqa: E731
+            x, w, b[:w.shape[1]], 2, pad, outpad)
     else:  # K4 at chip_smoke.py's weight scales
         x = torch.randn(2, C, 96, generator=g)
         w = tuple(mrf.MRFBranch(

@@ -366,6 +366,9 @@ def test_dropout_sits_where_the_jax_encoder_has_it(monkeypatch):
 
     b = _batch(3)
     jm = JGradTTS(config=_jcfg(0.1, 0.5))  # the same parameters as at rate 0
+    # built (and cached) before the interception: its `init` calls the
+    # encoder's dropout layers too, and they are not the calls counted here
+    params = _jax_model()[1]
     jcalls = []
 
     def intercept(next_fun, args, kwargs, context):
@@ -376,7 +379,7 @@ def test_dropout_sits_where_the_jax_encoder_has_it(monkeypatch):
     with nn.intercept_methods(intercept):  # records while the encoder traces
         jax.jit(lambda p, x, xl: jm.apply({"params": p}, x, xl, deterministic=False,
                                           method="encode", rngs={"dropout": jax.random.PRNGKey(2)})
-                )(_jax_model()[1], jnp.asarray(b["x"]), jnp.asarray(b["x_lengths"]))
+                )(params, jnp.asarray(b["x"]), jnp.asarray(b["x_lengths"]))
     pcalls = []
     real = players.dropout
 
