@@ -1,8 +1,9 @@
 """Typed configuration tree with named presets (a copy of
 `arttts_tpu/core/config.py`, which the port may not import: it pulls in JAX).
 
-`get_preset("v2")` is the GradTTS text->mel model the port serves; the other
-presets are carried as plain data.
+The port serves `get_preset("v2")` (GradTTS text->mel) and the v6 family
+(`v6`, `v6_zhCN`, `msml1h`: GradTTArtic, VoxCommunis phone features ->
+SPARC articulatory tracks); the other presets are carried as plain data.
 """
 
 from __future__ import annotations
@@ -12,6 +13,13 @@ from typing import Tuple
 
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
 from arttts_tpu_torch.text.symbols import n_symbols_with_blank
+
+# SPARC articulatory channel bookkeeping (ref configs/params_v1.py:22-35):
+# raw SPARC features are 14 channels (12 EMA + pitch + loudness); they are
+# reordered/padded into n_feats=16 for U-Net divisibility.
+SPARC_REORDER_FEATS: Tuple[int, ...] = (0, 3, 1, 4, 2, 5, 6, 9, 7, 10, 8, 11, 15, 13)
+SPARC_PITCH_IDX: int = SPARC_REORDER_FEATS[12]  # 15
+SPARC_LOUDNESS_IDX: int = SPARC_REORDER_FEATS[13]  # 13
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,9 @@ layouts: mel (B, T, 80), wav (B, T*256, 1).
 
 Entry points take `device` (default "cuda") and place their inputs there;
 the model and vocoder must already live on it. There is no fallback: with
-no card, a "cuda" call raises.
+no card, a "cuda" call raises. `spk` is a multi-speaker model's raw speaker
+input (float pre-embeddings (B, 1024) for GradTTArtic, int ids otherwise),
+as in the JAX signatures. Only the Euler solver is ported.
 """
 
 from __future__ import annotations
@@ -33,8 +35,15 @@ def _on(device, *tensors):
     return [None if t is None else torch.as_tensor(t).to(dev) for t in tensors]
 
 
+def _check_solver(solver: str) -> None:
+    if solver != "euler":
+        raise NotImplementedError(
+            f"solver {solver!r}: the port has the Euler solver only (Heun and DPM-2M are "
+            "ROADMAP A3)")
+
+
 @torch.inference_mode()
-def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False,
+def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, spk=None,
                       generator: Optional[torch.Generator] = None, score_fn=None):
     """Euler reverse-SDE (stoc) or probability-flow ODE sampler.
 
@@ -51,7 +60,7 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False,
     for i in range(n_timesteps):
         t = torch.full((B,), 1.0 - (i + 0.5) * h, dtype=z.dtype, device=z.device)
         noise_t = get_noise(t[:, None, None], dec.beta_min, dec.beta_max)
-        score = score_fn(xt, mask, mu, t)
+        score = score_fn(xt, mask, mu, t, spk)
         if stoc:
             dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
             eps = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
@@ -63,22 +72,23 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False,
 
 
 @torch.inference_mode()
-def encode_text(model, x, x_lengths, device="cuda"):
+def encode_text(model, x, x_lengths, spk=None, device="cuda"):
     """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
-    (B,) the summed ceil of the predicted durations (picks the bucket)."""
-    x, x_lengths = _on(device, x, x_lengths)
+    (B,) the summed ceil of the predicted durations (picks the bucket; one
+    frame a token for a model without a duration predictor)."""
+    x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
-    mu_x, logw, x_mask = model.encode(x, x_lengths)
+    mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
     w = torch.exp(logw) * x_mask
     return mu_x, logw, x_mask, torch.ceil(w).sum(dim=(1, 2))
 
 
 @torch.inference_mode()
-def predict_lengths(model, x, x_lengths, device="cuda"):
+def predict_lengths(model, x, x_lengths, spk=None, device="cuda"):
     """Duration-only forward: w = exp(logw) * mask, (B, T_x, 1)."""
-    x, x_lengths = _on(device, x, x_lengths)
+    x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
-    _, logw, x_mask = model.encode(x, x_lengths)
+    _, logw, x_mask = model.encode(x, x_lengths, spk)
     return torch.exp(logw) * x_mask
 
 
@@ -86,11 +96,13 @@ def predict_lengths(model, x, x_lengths, device="cuda"):
 def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_mask,
                              n_timesteps: int, max_frames: int, temperature: float = 1.0,
                              stoc: bool = False, length_scale: float = 1.0,
-                             x_durations=None, device="cuda"):
+                             x_durations=None, device="cuda", spk=None,
+                             solver: str = "euler"):
     """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
     diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
     (B, max_frames, n_feats), masked past y_lengths."""
-    mu_x, logw, x_mask, x_durations = _on(device, mu_x, logw, x_mask, x_durations)
+    _check_solver(solver)
+    mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations, spk)
     check_module(model, device)
     if x_durations is not None:
         w = x_durations[:, :, None] * x_mask
@@ -104,21 +116,23 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
     noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
     z = mu_y + noise / temperature
-    dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, generator)
+    dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator)
     return mu_y * y_mask, dec * y_mask, attn, y_lengths
 
 
 @torch.inference_mode()
 def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int,
                max_frames: int, temperature: float = 1.0, stoc: bool = False,
-               length_scale: float = 1.0, x_durations=None, device="cuda"):
-    """Text ids (B, T_x) -> (mu_y, dec, attn, y_lengths)."""
-    x, x_lengths = _on(device, x, x_lengths)
+               length_scale: float = 1.0, x_durations=None, device="cuda", spk=None,
+               solver: str = "euler"):
+    """Inputs (B, T_x) ids or (B, T_x, n_input_feats) traits -> (mu_y, dec,
+    attn, y_lengths)."""
+    x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
-    mu_x, logw, x_mask = model.encode(x, x_lengths)
+    mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
     return synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
-        stoc, length_scale, x_durations, device,
+        stoc, length_scale, x_durations, device, spk=spk, solver=solver,
     )
 
 
@@ -135,11 +149,12 @@ def vocode(vocoder, mel, device="cuda"):
 @torch.inference_mode()
 def synthesize_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
                       n_timesteps: int, max_frames: int, temperature: float = 1.0,
-                      stoc: bool = False, x_durations=None, device="cuda"):
+                      stoc: bool = False, x_durations=None, device="cuda", spk=None,
+                      solver: str = "euler"):
     """Text -> waveform: (wav (B, max_frames*256, 1), y_lengths)."""
     _, dec, _, y_lengths = synthesize(
         model, generator, x, x_lengths, n_timesteps, max_frames, temperature, stoc,
-        x_durations=x_durations, device=device,
+        x_durations=x_durations, device=device, spk=spk, solver=solver,
     )
     return vocode(vocoder, dec, device), y_lengths
 
@@ -148,11 +163,12 @@ def synthesize_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
 def synthesize_to_wav_from_encoding(model, vocoder, generator: torch.Generator, mu_x, logw,
                                     x_mask, n_timesteps: int, max_frames: int,
                                     temperature: float = 1.0, stoc: bool = False,
-                                    x_durations=None, device="cuda"):
+                                    x_durations=None, device="cuda", spk=None,
+                                    solver: str = "euler"):
     """Decode + vocode from `encode_text`'s outputs: (wav, y_lengths)."""
     _, dec, _, y_lengths = synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature, stoc,
-        x_durations=x_durations, device=device,
+        x_durations=x_durations, device=device, spk=spk, solver=solver,
     )
     return vocode(vocoder, dec, device), y_lengths
 
@@ -167,16 +183,16 @@ def frame_bucket(predicted_frames: int, buckets=(128, 256, 384, 512, 768, 1024))
 
 
 def serve_text_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
-                      n_timesteps: int = 50, temperature: float = 1.0,
-                      max_frames_cap: int = 2048, device="cuda"):
+                      n_timesteps: int = 50, temperature: float = 1.0, spk=None,
+                      solver: str = "euler", max_frames_cap: int = 2048, device="cuda"):
     """The request path: encode once, pick the smallest bucket holding the
     predicted length on the host, then decode and vocode.
     Returns (wav, y_lengths, bucket)."""
-    mu_x, logw, x_mask, pred = encode_text(model, x, x_lengths, device)
+    mu_x, logw, x_mask, pred = encode_text(model, x, x_lengths, spk, device)
     pred_frames = int(math.ceil(float(pred.max())))
     bucket = frame_bucket(min(fix_len_compatibility(max(pred_frames, 4)), max_frames_cap))
     wav, y_lengths = synthesize_to_wav_from_encoding(
         model, vocoder, generator, mu_x, logw, x_mask, n_timesteps, bucket, temperature,
-        device=device,
+        device=device, spk=spk, solver=solver,
     )
     return wav, y_lengths, bucket

@@ -1,22 +1,34 @@
-"""GradTTS acoustic model (port of `arttts_tpu/models/tts.py:GradTTSModel`
-for the single-speaker text encoder and the 2D U-Net decoder).
+"""GradTTS / GradTTArtic acoustic model (port of
+`arttts_tpu/models/tts.py:GradTTSModel` for the text and ipa_trait
+encoders, the speaker paths and the 2D U-Net decoder).
 
 The module holds the parameters and the submodule forwards; sampling is
 `arttts_tpu_torch/infer/sampler.py`, the training loss
 `arttts_tpu_torch/train/losses.py` (in training mode, with the encoder's
 dropout drawn from the generator `encode` is given). State-dict names are
-the reference's: `encoder.*` and `decoder.estimator.*`.
+the reference's: `encoder.*`, `decoder.estimator.*`, and for the speaker
+`spk_enc.spk_fc.{0,3}` (GradTTArtic's 1024-d pre-embedding MLP) or
+`spk_emb` (the embedding table of other multi-speaker models).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from arttts_tpu_torch.core.config import ModelConfig
 from arttts_tpu_torch.core.device import resolve
-from arttts_tpu_torch.models.encoder import TextEncoder
+from arttts_tpu_torch.models.encoder import Encoder
+from arttts_tpu_torch.models.hifigan import SpeakerFT
 from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
+
+
+# 1024-d SSL speaker pre-embedding -> 64-d embedding
+# (model_ms/spk_encoder.py:13-24): the same MLP, with the same state-dict
+# names (`spk_fc.0`, `spk_fc.3`), as the SPARC vocoder's speaker layer
+SpeakerEncodingLayer = SpeakerFT
 
 
 class Diffusion(nn.Module):
@@ -35,22 +47,39 @@ class Diffusion(nn.Module):
 
 
 class GradTTSModel(nn.Module):
-    """Text encoder + diffusion score estimator."""
+    """Encoder + diffusion score estimator (+ speaker embedding)."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        self.config = config
-        self.encoder = TextEncoder(config.encoder, config.n_feats)
-        self.decoder = Diffusion(config)
+        c = config
+        self.config = c
+        self.encoder = Encoder(c.encoder, c.n_feats, c.n_spks, c.spk_emb_dim)
+        self.decoder = Diffusion(c)
+        if c.name == "grad_ttartic":
+            self.spk_enc = SpeakerEncodingLayer(c.spk_preemb_dim, c.spk_emb_dim)
+        elif c.n_spks > 1:
+            self.spk_emb = nn.Embedding(c.n_spks, c.spk_emb_dim)
 
-    def encode(self, x, x_lengths, generator=None):
-        """(mu_x (B, T, F), logw (B, T, 1), x_mask (B, T, 1)); `generator`
-        draws the dropout masks in training mode."""
-        return self.encoder(x, x_lengths, generator)
+    def embed_speaker(self, spk) -> Optional[torch.Tensor]:
+        """spk: int ids (B,) for the embedding-table path, or float
+        pre-embeddings (B, spk_preemb_dim) for grad_ttartic; None otherwise."""
+        if spk is None:
+            return None
+        if self.config.name == "grad_ttartic":
+            return self.spk_enc(spk.float())
+        if self.config.n_spks > 1:
+            return self.spk_emb(spk)
+        return None
 
-    def estimate_noise(self, xt, mask, mu, t):
-        """Score-network forward on the module path (B, T, F)."""
-        return self.decoder.estimator(xt, mask, mu, t)
+    def encode(self, x, x_lengths, spk=None, generator=None):
+        """(mu_x (B, T, F), logw (B, T, 1), x_mask (B, T, 1)); spk is a raw
+        speaker input; `generator` draws the dropout masks in training mode."""
+        return self.encoder(x, x_lengths, generator, self.embed_speaker(spk))
+
+    def estimate_noise(self, xt, mask, mu, t, spk=None):
+        """Score-network forward on the module path (B, T, F); spk is a raw
+        speaker input."""
+        return self.decoder.estimator(xt, mask, mu, t, self.embed_speaker(spk))
 
 
 def build_model(config: ModelConfig, device="cuda", seed: int = 0) -> GradTTSModel:

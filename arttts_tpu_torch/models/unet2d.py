@@ -160,7 +160,7 @@ def attention(dim: int) -> Residual:
 
 
 class GradLogPEstimator2d(nn.Module):
-    """U-Net noise estimator over the (mu, x_t) two-plane image."""
+    """U-Net noise estimator over the (mu, x_t[, speaker]) image."""
 
     cuda_calls = 0  # forwards on a CUDA tensor (the serving path runs none)
 
@@ -168,16 +168,18 @@ class GradLogPEstimator2d(nn.Module):
                  n_spks: int = 1, spk_emb_dim: int = 64, n_feats: int = 80,
                  pe_scale: int = 1000, masked_norm: bool = False):
         super().__init__()
-        if n_spks > 1:
-            raise NotImplementedError("the port's U-Net is single-speaker")
         self.dim = dim
         self.n_feats = n_feats
         self.pe_scale = pe_scale
         self.masked_norm = masked_norm
         self.time_pos_emb = SinusoidalPosEmb(dim)
         self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(), nn.Linear(dim * 4, dim))
+        self.n_spks = n_spks
+        if n_spks > 1:  # the speaker plane: embedding -> (B, n_feats)
+            self.spk_mlp = nn.Sequential(nn.Linear(spk_emb_dim, spk_emb_dim * 4), Mish(),
+                                         nn.Linear(spk_emb_dim * 4, n_feats))
 
-        dims = [2] + [dim * m for m in dim_mults]
+        dims = [3 if n_spks > 1 else 2] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         rb = lambda a, b: ResnetBlock(a, b, dim, groups, masked_norm)  # noqa: E731
         self.downs = nn.ModuleList()
@@ -203,12 +205,23 @@ class GradLogPEstimator2d(nn.Module):
         """MLP(sinusoidal(t)) (B, dim); each block applies mish then its Dense."""
         return self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
 
+    def input_planes(self, x, mu, spk: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The U-Net's input image (B, 2 or 3, F, T): mu, x and, with
+        n_spks > 1, the speaker plane spk_mlp(spk) broadcast over T."""
+        planes = [mu.transpose(1, 2), x.transpose(1, 2)]
+        if self.n_spks > 1:
+            if spk is None:
+                raise ValueError("a multi-speaker estimator needs speaker embeddings")
+            planes.append(self.spk_mlp(spk)[:, :, None].expand_as(planes[0]))
+        return torch.stack(planes, dim=1)
+
     def forward(self, x, mask, mu, t, spk: Optional[torch.Tensor] = None):
-        """x, mu: (B, T, n_feats); mask: (B, T, 1); t: (B,). Returns (B, T, n_feats)."""
+        """x, mu: (B, T, n_feats); mask: (B, T, 1); t: (B,); spk: (B,
+        spk_emb_dim) speaker embedding (n_spks > 1). Returns (B, T, n_feats)."""
         if x.is_cuda:
             GradLogPEstimator2d.cuda_calls += 1
         t_emb = self.time_embedding(t)
-        h = torch.stack([mu.transpose(1, 2), x.transpose(1, 2)], dim=1)  # (B, 2, F, T)
+        h = self.input_planes(x, mu, spk)  # (B, 2 or 3, F, T)
         mask_img = mask.transpose(1, 2)[:, :, None, :]  # (B, 1, 1, T)
 
         hiddens = []

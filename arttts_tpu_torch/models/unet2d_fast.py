@@ -6,8 +6,10 @@ Every ResnetBlock2d (with the Rezero linear attention fused behind it where
 the U-Net has one) is one call of K1 `ops.resblock2d.resblock2d`; the two
 Downsample2d are K2 `ops.updown.downsample2d`; the two 4x4 transposed convs
 K3 `ops.updown.conv_transpose2d`. Per evaluation: 13 K1 calls (6 with
-attention), 2 K2, 2 K3. The time MLP and the final 1x1 projection to one
-channel are small products outside any kernel, as in the JAX package.
+attention), 2 K2, 2 K3. The time MLP, the speaker MLP of a multi-speaker
+model (its output is a third input plane, so ResnetBlock2d_0 takes 3
+channels) and the final 1x1 projection to one channel are small products
+outside any kernel, as in the JAX package.
 
 GroupNorm statistics (pitfall of the JAX dispatch): on a TPU the JAX package
 runs its fused kernels only where `unet2d_fast_supported(cfg, T)` holds, and
@@ -45,10 +47,10 @@ def _tpu_vmem_fits(T: int, rows: int, n_in: int, lanes: int = 128) -> bool:
 
 def supported(cfg) -> bool:
     """Geometry the kernels implement: the flagship U-Net (dim 64, mults
-    (1, 2, 4), 8 groups, float32) on a single-speaker model."""
+    (1, 2, 4), 8 groups, float32), with or without the speaker plane."""
     d = cfg.decoder
     return (d.kind == "unet2d" and d.dim == 64 and tuple(d.dim_mults) == (1, 2, 4)
-            and d.groups == 8 and d.compute_dtype == "float32" and cfg.n_spks == 1
+            and d.groups == 8 and d.compute_dtype == "float32"
             and d.attn_heads == 4 and d.attn_dim_head == 32)
 
 
@@ -117,10 +119,11 @@ class KernelWeights:
         self.out_b = est.final_conv.bias.detach()
 
 
-def score2d_fast(kw: KernelWeights, xt, mask, mu, t, *, masked_stats: bool,
+def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_stats: bool,
                  eps: float) -> torch.Tensor:
     """Noise estimate of (B, T, n_feats) inputs through K1-K3; mask (B, T, 1),
-    t (B,). The U-Net's frame axis must divide by 4."""
+    t (B,), spk_emb (B, spk_emb_dim) the speaker embedding of a
+    multi-speaker model. The U-Net's frame axis must divide by 4."""
     B, T, F = xt.shape
     if T % 4:
         raise ValueError(f"frame axis {T} must be divisible by 4 (fix_len_compatibility)")
@@ -135,8 +138,8 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, *, masked_stats: bool,
         return resblock2d(xs, lens, temb, kw.block_w[i], masked_stats=masked_stats,
                           eps=eps, attn=kw.attn_w.get(i))
 
-    img = torch.stack([mu.transpose(1, 2), xt.transpose(1, 2)], dim=1).contiguous()
-    h = rb(0, [img], lengths)
+    img = kw.est.input_planes(xt, mu, spk_emb).contiguous()  # (B, 2 or 3, F, T)
+    h = rb(0, [img], lengths)  # K1 masks its input, the speaker plane too
     h = rb(1, [h], lengths)  # level 1's output feeds no skip: two ups
     h = downsample2d(h, lengths, *kw.down[0])
     h = rb(2, [h], lengths2)
@@ -161,8 +164,9 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, *, masked_stats: bool,
 
 def make_score_fn(model, T: int) -> Callable:
     """The score function the sampler calls at frame bucket T:
-    (xt, mask, mu, t) -> (B, T, n_feats), through the kernels at every
-    bucket, with the GroupNorm statistics the JAX package computes there."""
+    (xt, mask, mu, t, spk) -> (B, T, n_feats), through the kernels at every
+    bucket, with the GroupNorm statistics the JAX package computes there.
+    `spk` is the raw speaker input (`model.embed_speaker`'s argument)."""
     cfg = model.config
     if not supported(cfg):
         raise NotImplementedError("the kernels implement the flagship 2D U-Net only")
@@ -170,6 +174,7 @@ def make_score_fn(model, T: int) -> Callable:
     masked, eps = masked_statistics(cfg, T), group_norm_eps(cfg)
 
     def score(xt, mask, mu, t, spk: Optional[torch.Tensor] = None):
-        return score2d_fast(kw, xt, mask, mu, t, masked_stats=masked, eps=eps)
+        return score2d_fast(kw, xt, mask, mu, t, model.embed_speaker(spk),
+                            masked_stats=masked, eps=eps)
 
     return score

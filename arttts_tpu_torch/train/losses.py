@@ -85,7 +85,7 @@ def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, 
     n_feats = model.config.n_feats
     dec = model.config.decoder
 
-    mu_x, logw, x_mask = model.encode(x, x_lengths, generator)
+    mu_x, logw, x_mask = model.encode(x, x_lengths, generator=generator)
     y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
 
     # MAS on the detached log-prior; the path carries no gradient

@@ -4,7 +4,7 @@ arrays) -> the port's state dicts.
 The port's modules carry the reference's torch state-dict names, so this is
 the exact inverse of the JAX package's converters
 (`arttts_tpu/utils/torch_convert_acoustic.py:convert_grad_tts`,
-`arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
+`convert_grad_ttartic`, `arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
 `convert_sparc_generator`, `convert_spk_sparc`). Layouts:
 
   flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
@@ -57,10 +57,13 @@ def _layer_norm(sd, key, p) -> None:
 
 
 def encoder_state_dict(enc: Dict, prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
-    """Flax `Encoder` subtree (kind "text") -> `TextEncoder` state dict."""
+    """Flax `Encoder` subtree -> the port's `Encoder` state dict (the
+    embedding only for the text kind, `proj_w` only with a duration
+    predictor)."""
     sd: Dict[str, torch.Tensor] = {}
     p = prefix
-    sd[f"{p}emb.weight"] = _t(enc["Embed_0"]["embedding"])
+    if "Embed_0" in enc:
+        sd[f"{p}emb.weight"] = _t(enc["Embed_0"]["embedding"])
     pre = enc["ConvReluNorm_0"]
     n = sum(1 for k in pre if k.startswith("ChannelLayerNorm_"))
     for i in range(n):
@@ -81,6 +84,8 @@ def encoder_state_dict(enc: Dict, prefix: str = "encoder.") -> Dict[str, torch.T
         _conv1d(sd, f"{p}encoder.ffn_layers.{i}.conv_1", tr[f"FFN_{i}"]["Conv_0"])
         _conv1d(sd, f"{p}encoder.ffn_layers.{i}.conv_2", tr[f"FFN_{i}"]["Conv_1"])
     _conv1d(sd, f"{p}proj_m", enc["proj_m"])
+    if "proj_w" not in enc:
+        return sd
     w = enc["proj_w"]
     _conv1d(sd, f"{p}proj_w.conv_1", w["Conv_0"])
     _layer_norm(sd, f"{p}proj_w.norm_1", w["ChannelLayerNorm_0"])
@@ -103,6 +108,9 @@ def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
     p = prefix
     _dense(sd, f"{p}mlp.0", est["Dense_0"])
     _dense(sd, f"{p}mlp.2", est["Dense_1"])
+    if "Dense_2" in est:  # the speaker plane's MLP (n_spks > 1)
+        _dense(sd, f"{p}spk_mlp.0", est["Dense_2"])
+        _dense(sd, f"{p}spk_mlp.2", est["Dense_3"])
     # JAX call order: downs' resnets, mid, ups' resnets; attentions likewise
     res_keys = [f"{p}downs.{lv}.{j}" for lv in range(num_resolutions) for j in (0, 1)]
     res_keys += [f"{p}mid_block1", f"{p}mid_block2"]
@@ -133,9 +141,24 @@ def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
 
 def grad_tts_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     """`GradTTSModel` params (`variables["params"]`) -> the port's
-    `GradTTSModel` state dict."""
+    `GradTTSModel` state dict: encoder, estimator and, for a multi-speaker
+    model, its speaker embedding (`spk_table` -> `spk_emb`)."""
     sd = encoder_state_dict(params["encoder"])
     sd.update(estimator_state_dict(params["estimator"]))
+    if "spk_table" in params:
+        sd["spk_emb.weight"] = _t(params["spk_table"]["embedding"])
+    return sd
+
+
+def grad_ttartic_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """GradTTArtic params (`GradTTSModel(name="grad_ttartic")`) -> the
+    port's state dict (the inverse of `convert_grad_ttartic`): the ipa_trait
+    encoder without `proj_w`, the estimator with its speaker MLP
+    (`Dense_2`, `Dense_3` -> `spk_mlp.0`, `.2`) and the speaker encoding
+    layer (`spk_encoder` -> `spk_enc.spk_fc.0`, `.3`)."""
+    sd = grad_tts_state_dict(params)
+    _dense(sd, "spk_enc.spk_fc.0", params["spk_encoder"]["Dense_0"])
+    _dense(sd, "spk_enc.spk_fc.3", params["spk_encoder"]["Dense_1"])
     return sd
 
 

@@ -23,8 +23,12 @@ fatal on failure (exit code 1, no result line):
    and several-warp routes), T_y not a multiple of 32, decision words in
    device memory, and a case of ties, bit for bit against its plain
    version and the NumPy oracle (at the bucket also its device time by
-   kernel and the wrapper's masking alone); time each (CUDA events) beside
-   its bound, plain version and library call. K1-K5 (3xTF32 on the tensor
+   kernel and the wrapper's masking alone); and at the articulatory model's
+   shapes (v6, 16 feature rows): K1 at c_in 3 (the speaker plane) at 16x256
+   with a padded length, K1 at 16x512, 8x256 (C=128) and 4x128 (C=256) with
+   attention, K2 16 -> 8 and 8 -> 4 rows, K3 4 -> 8 and 8 -> 16, their block
+   counts recorded (an `artic_kernel_shapes` line); time each (CUDA events)
+   beside its bound, plain version and library call. K1-K5 (3xTF32 on the tensor
    cores) run each case twice and must give the same bits, and
    record their grids' block counts (every main-path launch must give each
    SM a block) and both bounds (tensor-core route and float32 CUDA cores);
@@ -36,7 +40,9 @@ fatal on failure (exit code 1, no result line):
    yardstick of one part, and a line sums K1's calls into the kernel
    table's rows 1 and 2 per request;
 4. hold the whole score network, kernel path against the module path, at
-   80x768 (and at bucket 128 with padding);
+   80x768 (and at bucket 128 with padding), and the v6 estimator with the
+   speaker plane at 16x256 (masked statistics, 181 valid frames; the module
+   path given the same statistics) and 16x128;
 4b. hold the full-width vocoder's fast path (K4, K5) against its module
    path at 768 frames, and time both alone at buckets 128, 384 and 768;
 5. hold a short text -> wav request on the card (kernels) against the same
@@ -56,6 +62,16 @@ fatal on failure (exit code 1, no result line):
    `vocode_sparc` (windowed and two-placement tracks), against
    `vocode_chunked` over its module path, with K4's FiLM mode and K5
    counted;
+8b. artic_ms: the full-width v6 preset (GradTTArtic) from a seed, on a
+   synthetic VoxCommunis layout (manifest, 100 Hz alignment, 1024-d speaker
+   pre-embeddings) of three utterances aligned to 120, 231 and 480 frames
+   (buckets 128, 256, 512), each through `infer/pipeline.py`'s
+   `run_acoustic_inference(use_align=True)` (50 steps) and
+   `run_sparc_vocoder`, with the launch counters set to 0 before and read
+   after: (29, L) artifacts, finite wavs of L*256 samples, K1-K5 launched as
+   often as the path calls them; walls and RTF per utterance;
+8c. card_vs_cpu_artic: the 120-frame utterance with 4 steps on the card
+   against the same on the CPU (plain versions), temperature 1e6;
 9. training: the full-width v2 preset from seed 0 trains one epoch through
    `train/trainer.py:Trainer` on a seeded LJSpeech-shaped synthetic set
    (48 utterances, three batches of 16, and 16 for validation), with a
@@ -69,6 +85,7 @@ Prints JSON lines; the `{"kernels": [...]}` line and the card line come
 before the last, which is `{"ok": true, "device": {...}}`.
 """
 
+import copy
 import dataclasses
 import json
 import math
@@ -275,7 +292,7 @@ def main():
     k1_lib = _build.library("resblock2d")
 
     def k1_case(name, cs, c_out, H, T, lengths, attn=False, masked=True, block_only=False,
-                in_eval=True):
+                in_eval=True, artic=False):
         B = len(lengths)
         xs = [rnd(B, c, H, T) for c in cs]
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -314,18 +331,19 @@ def main():
         convs = [(x_cat, w.w1, w.b1)] + ([] if block_only else [(h_mid, w.w2, w.b2)])
         lib_conv = lambda: [torch.nn.functional.conv2d(i, k, bb, padding=1)  # noqa: E731
                             for i, k, bb in convs]
+        timed = in_eval or artic
         cases.append(dict(kernel="resblock2d", case=name, shape=[B, list(cs), c_out, H, T],
                           lengths=lengths, attn=attn, masked_stats=masked, block_only=block_only,
-                          in_eval=in_eval, max_abs_err=err, max_abs_ref=scale,
+                          in_eval=in_eval, artic=artic, max_abs_err=err, max_abs_ref=scale,
                           same_bits_twice=same_bits, blocks=blocks, blocks_1x1=blocks_1x1,
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
-                          device_ms_per_call=device_ms(kern) if in_eval else None,
+                          device_ms_per_call=device_ms(kern) if timed else None,
                           library_ms=None,
-                          library_conv_ms=cuda_ms(lib_conv) if in_eval else None,
-                          library_conv_device_ms=device_ms(lib_conv) if in_eval else None))
+                          library_conv_ms=cuda_ms(lib_conv) if timed else None,
+                          library_conv_device_ms=device_ms(lib_conv) if timed else None))
 
-    def updown_case(kernel, cin, H, T, lengths):
+    def updown_case(kernel, cin, H, T, lengths, artic=False):
         B = len(lengths)
         x = rnd(B, cin, H, T)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -360,13 +378,14 @@ def main():
         # the tensor-core route: three TF32 passes per product (3xTF32)
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         f32_ms, _ = bound(flops, nbytes)
-        # the main path's calls (B=1, unpadded); there the library call is the
-        # same function
+        # the main path's calls (B=1, unpadded; the v2 evaluation's unless
+        # `artic`); there the library call is the same function
         full = lengths == [T]
         lib_ms = cuda_ms(lib) if full else None
         name = "downsample_kernel" if kernel == "downsample2d" else "convt_kernel"
         cases.append(dict(kernel=kernel, case=f"C={cin} {H}x{T}", shape=[B, cin, H, T],
-                          lengths=lengths, in_eval=full, max_abs_err=err, max_abs_ref=scale,
+                          lengths=lengths, in_eval=full and not artic, artic=artic,
+                          max_abs_err=err, max_abs_ref=scale,
                           same_bits_twice=same_bits, blocks=blocks,
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
@@ -479,6 +498,22 @@ def main():
     updown_case("conv_transpose2d", 64, 40, 384, [384])
     updown_case("conv_transpose2d", 64, 40, 384, [351])
     updown_case("conv_transpose2d", 128, 20, 192, [97, 192])
+    # the articulatory model's shapes (v6: 16 feature rows, the speaker plane
+    # as a third input channel of ResnetBlock2d_0): K1 at c_in 3 and at 16 /
+    # 8 / 4 rows, K2 16 -> 8 and 8 -> 4 rows, K3 4 -> 8 and 8 -> 16; their
+    # blocks are recorded, not held to the SM count
+    k1_case("artic ResnetBlock2d_0 c_in 3, padded", (3,), 64, 16, 256, [181], in_eval=False,
+            artic=True)
+    k1_case("artic ResnetBlock2d_1+attn0", (64,), 64, 16, 512, [512], attn=True,
+            in_eval=False, artic=True)
+    k1_case("artic ResnetBlock2d_3+attn1", (128,), 128, 8, 256, [256], attn=True,
+            in_eval=False, artic=True)
+    k1_case("artic ResnetBlock2d_5+attn2", (256,), 256, 4, 128, [128], attn=True,
+            in_eval=False, artic=True)
+    updown_case("downsample2d", 64, 16, 512, [512], artic=True)
+    updown_case("downsample2d", 128, 8, 256, [256], artic=True)
+    updown_case("conv_transpose2d", 128, 4, 128, [128], artic=True)
+    updown_case("conv_transpose2d", 64, 8, 256, [256], artic=True)
     # the vocoder's K4 and K5 calls of one 768-frame request (rates 8, 8, 2, 2)
     k4_case("C=128 stage", 1, 128, 768 * 64, in_eval=True)
     k4_case("C=64 stage", 1, 64, 768 * 128, in_eval=True)
@@ -574,14 +609,22 @@ def main():
                                                                              least)
     emit({"resblock2d_rows_per_request": {"card": card, "sms": n_sm, "steps": N_STEPS,
                                           "rows": k1_rows}})
+    emit({"artic_kernel_shapes": {"card": card, "sms": n_sm, "cases": [
+        dict(kernel=c["kernel"], case=c["case"], shape=c["shape"], lengths=c["lengths"],
+             blocks=c["blocks"], blocks_1x1=c.get("blocks_1x1"), ms=c["ms"],
+             device_ms_per_call=c["device_ms_per_call"], bound_ms=c["bound_ms"],
+             bound_f32_cuda_core_ms=c["bound_f32_cuda_core_ms"], plain_ms=c["plain_ms"],
+             library_ms=c["library_ms"], max_abs_err=c["max_abs_err"],
+             same_bits_twice=c["same_bits_twice"])
+        for c in cases if c.get("artic")]}})
 
     # ---- 4. the score network: kernel path against the module path --------
     from arttts_tpu_torch.core.config import get_preset
     from arttts_tpu_torch.infer import sampler
     from arttts_tpu_torch.models.hifigan import build_vocoder, hifigan_forward_fast
     from arttts_tpu_torch.models.tts import build_model
-    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
-    from arttts_tpu_torch.models.unet2d_fast import make_score_fn
+    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d, GroupNorm
+    from arttts_tpu_torch.models.unet2d_fast import make_score_fn, masked_statistics
 
     cfg = get_preset("v2").model
     model = build_model(cfg, device=dev, seed=0)
@@ -618,6 +661,44 @@ def main():
     emit({"score_network": score_checks})
     if not all(c["ok"] for c in score_checks):
         fail("score network: kernel path disagrees with the module path")
+
+    # the v6 estimator at full width with the speaker plane (16 rows, c_in 3
+    # at ResnetBlock2d_0): bucket 256 takes masked statistics, 128 not. The
+    # module path computes what the kernel path does at each bucket: its
+    # GroupNorms take masked statistics where `masked_statistics` says so
+    # (eps stays v6's 1e-6), as the JAX package's TPU kernels do there
+    artic = build_model(get_preset("v6").model, device=dev, seed=3)
+    est_a = artic.decoder.estimator
+    with torch.no_grad():
+        for k, site in enumerate([lv[2] for lv in est_a.downs] + [est_a.mid_attn]
+                                 + [u[2] for u in est_a.ups]):
+            site.fn.g.fill_((0.03 + 0.01 * k) * (-1) ** k)
+    spk_checks = []
+    with torch.inference_mode():
+        for T, L in ((256, 181), (128, 100)):
+            xt, mu, spk = rnd(1, T, 16), rnd(1, T, 16), rnd(1, 1024)
+            mask = (torch.arange(T, device=dev) < L).float()[None, :, None]
+            t = torch.full((1,), 0.37, device=dev)
+            fast = make_score_fn(artic, T)
+            module = copy.deepcopy(artic)
+            for gn in module.modules():
+                if isinstance(gn, GroupNorm):
+                    gn.masked = masked_statistics(artic.config, T)
+            got = fast(xt, mask, mu, t, spk)
+            ref = module.estimate_noise(xt, mask, mu, t, spk)
+            torch.cuda.synchronize()
+            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= TOL_SCORE * max(1.0, scale)
+            spk_checks.append(dict(preset="v6", T=T, length=L, rows=16,
+                                   masked_stats=masked_statistics(artic.config, T),
+                                   max_abs_err=err, max_abs_ref=scale, tol=TOL_SCORE, ok=ok,
+                                   kernel_ms=cuda_ms(lambda: fast(xt, mask, mu, t, spk), n=5),
+                                   plain_ms=cuda_ms(
+                                       lambda: module.estimate_noise(xt, mask, mu, t, spk), n=5)))
+    emit({"score_network_speaker": spk_checks})
+    if not all(c["ok"] for c in spk_checks) or [c["masked_stats"] for c in spk_checks] != [
+            True, False]:
+        fail("score network with the speaker plane: kernel path disagrees with the module path")
 
     # ---- 4b. the vocoder alone: fast path (K4, K5) against the module path ----
     voc_checks = []
@@ -728,12 +809,6 @@ def main():
                                   x_durations=torch.full((1, n), 768 / n), device=dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for a in prof.key_averages():
-        if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0:
-            by_name[a.key] = (a.self_device_time_total / 1e3, a.count)
-    busy = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     # kernel time by the port's kernel it belongs to; the rest is PyTorch's
     # own (cuDNN convolutions, GEMVs, elementwise)
     k1_parts = {"3x3 conv": ("conv3x3_kernel",), "1x1 products": ("conv1x1_kernel",),
@@ -742,12 +817,23 @@ def main():
     families = {"K1 resblock2d": sum(k1_parts.values(), ()),
                 "K2 downsample2d": ("downsample_kernel",), "K3 conv_transpose2d": ("convt_kernel",),
                 "K4 mrf_stage": ("mrf_round_kernel",), "K5 upsample1d": ("upsample_kernel",)}
-    by_family = dict.fromkeys(list(families) + ["other"], 0.0)
-    calls = dict.fromkeys(list(families) + ["other"], 0)
-    for k, (ms, c) in by_name.items():
-        fam = [f for f, keys in families.items() if any(key in k for key in keys)]
-        by_family[fam[0] if fam else "other"] += ms
-        calls[fam[0] if fam else "other"] += c
+
+    def kernel_time(prof):
+        """(device ms and count by kernel name, busy ms, ms and launches by family)."""
+        by_name = {}
+        for a in prof.key_averages():
+            if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0:
+                by_name[a.key] = (a.self_device_time_total / 1e3, a.count)
+        by_family = dict.fromkeys(list(families) + ["other"], 0.0)
+        calls = dict.fromkeys(list(families) + ["other"], 0)
+        for k, (ms, c) in by_name.items():
+            fam = [f for f, keys in families.items() if any(key in k for key in keys)]
+            by_family[fam[0] if fam else "other"] += ms
+            calls[fam[0] if fam else "other"] += c
+        return by_name, sum(ms for ms, _ in by_name.values()), by_family, calls
+
+    by_name, busy, by_family, calls = kernel_time(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     k1_by_part = {part: dict(ms=0.0, launches_per_evaluation=0.0) for part in k1_parts}
     for k, (ms, c) in by_name.items():
         part = [f for f, keys in k1_parts.items() if any(key in k for key in keys)]
@@ -813,6 +899,147 @@ def main():
                     "runs": sparc_runs}})
     if not all(r["ok"] for r in sparc_runs):
         fail("SPARC: the fast path disagrees with the module path or skipped a kernel")
+
+    # ---- 8b. artic_ms: the v6 preset, VoxCommunis phones -> SPARC wav ---------
+    from arttts_tpu_torch.audio.io import load_wav, save_wav
+    from arttts_tpu_torch.data.ms_datasets import MsPhnmDataset
+    from arttts_tpu_torch.infer import pipeline
+    from arttts_tpu_torch.infer.chunked import HOP
+    from arttts_tpu_torch.voxcommunis.data import FeatureTokenizer
+    from arttts_tpu_torch.voxcommunis.decoder import FeatureDecoder
+    from arttts_tpu_torch.voxcommunis.io import write_manifest
+
+    exp_a = get_preset("v6")
+    art_dir = ROOT / "build" / "chip_smoke_artic"
+    shutil.rmtree(art_dir, ignore_errors=True)
+    r = np.random.default_rng(9)
+    frames = (120, 231, 480)  # aligned frames: buckets 128 (unmasked), 256 (padded), 512
+    phones = ["a", "t", "t͡ʃ", "aɪ", "kʰ", "ɛ", "ŋ", "ʃ", "i", "o", "u", "m", "n", "s", "SIL"]
+    (art_dir / "wavs").mkdir(parents=True)
+    spk_dir = art_dir / "encoded_audio_multi" / "ab" / "spk_preemb"
+    spk_dir.mkdir(parents=True)
+    lines = []
+    for i, n in enumerate(frames):
+        fid = f"cv_ab_ab_{i:04d}"
+        save_wav(art_dir / "wavs" / f"{fid}.wav", r.standard_normal(1600) * 0.1, 16000)
+        np.save(spk_dir / f"{fid}.npy", r.standard_normal(1024).astype(np.float32))
+        seq, left = [], 2 * n  # 100 Hz alignment frames, downsampled to 50 Hz by the dataset
+        while left:
+            k = min(left, 2 * int(r.integers(2, 9)))
+            seq += [str(r.choice(phones))] * k
+            left -= k
+        lines.append(f"{fid}\t{' '.join(seq)}")
+    write_manifest(art_dir / "wavs", art_dir / "man.tsv")
+    (art_dir / "align.align").write_text("\n".join(lines) + "\n")
+    ms_ds = MsPhnmDataset(art_dir, art_dir / "man.tsv", art_dir / "align.align",
+                          FeatureTokenizer(FeatureDecoder(sum_diphthong=True)))
+
+    class One:
+        """One utterance of `ms_ds` as a dataset of its own (timed alone)."""
+
+        def __init__(self, i):
+            self.manifest = [ms_ds.manifest[i]]
+            self.item = ms_ds[i]
+
+        def __len__(self):
+            return 1
+
+        def __getitem__(self, _):
+            return self.item
+
+    spk_ft = ms_ds[0]["spk"]
+    stats = dict(pitch_stats=(140.0, 30.0))
+    # warm-up (allocator, cuDNN plans of the encoder), not counted
+    pipeline.run_acoustic_inference(exp_a, artic, One(0), str(art_dir / "warm"),
+                                    n_timesteps=2, use_align=True, device=dev)
+    for f in counters + plains:
+        setattr(f, "launches" if f in counters else "cuda_calls", 0)
+    GradLogPEstimator2d.cuda_calls = 0
+    utts = []
+    for i, n in enumerate(frames):
+        one = One(i)
+        bucket = sampler.frame_bucket(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (path,) = pipeline.run_acoustic_inference(exp_a, artic, one, str(art_dir / "art"),
+                                                  n_timesteps=N_STEPS, use_align=True,
+                                                  device=dev)
+        torch.cuda.synchronize()
+        acoustic_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (wav_path,) = pipeline.run_sparc_vocoder(sparc, [path], spk_ft, str(art_dir / "wav"),
+                                                 device=dev, **stats)
+        torch.cuda.synchronize()
+        vocoder_s = time.perf_counter() - t0
+        arr = np.load(path)
+        wav, sr = load_wav(wav_path)
+        L = int(np.ceil(one.item["durations"]).sum())
+        imap = arr[28]
+        ok = (arr.shape == (29, L) and L == n and bool(np.isfinite(arr).all())
+              and np.array_equal(imap, np.round(imap)) and imap.min() >= 0
+              and imap.max() < one.item["x"].shape[0] and sr == 16000
+              and wav.shape == (L * HOP,) and bool(np.isfinite(wav).all()))
+        utts.append(dict(file=Path(path).name, T_x=int(one.item["x"].shape[0]), frames=L,
+                         bucket=bucket, masked_stats=masked_statistics(artic.config, bucket),
+                         artifact_shape=list(arr.shape), wav_samples=int(wav.shape[0]),
+                         steps=N_STEPS, acoustic_wall_s=acoustic_s, vocoder_wall_s=vocoder_s,
+                         acoustic_rtf=acoustic_s / (L / 50), rtf=(acoustic_s + vocoder_s)
+                         / (L * HOP / 16000), ok=ok))
+    art_launches = {f.__name__: f.launches for f in counters}
+    # where the time goes: the 480-frame utterance's acoustic stage again, profiled
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.run_acoustic_inference(exp_a, artic, One(2), str(art_dir / "prof"),
+                                        n_timesteps=N_STEPS, use_align=True, device=dev)
+        torch.cuda.synchronize()
+        art_wall_ms = (time.perf_counter() - t0) * 1e3
+    _, art_busy, art_family, art_calls = kernel_time(prof)
+    art_trace = dict(utterance="480 frames, bucket 512, 50 steps, acoustic stage",
+                     wall_ms_under_profiler=art_wall_ms, device_kernel_ms=art_busy,
+                     idle_share=1 - art_busy / art_wall_ms, kernel_ms_by_family=art_family,
+                     launches_by_family=art_calls,
+                     k1_k2_k3_device_ms_per_evaluation=sum(
+                         art_family[f] for f in list(families)[:3]) / N_STEPS)
+    art_plain = {f.__name__: f.cuda_calls for f in plains}
+    art_plain["GradLogPEstimator2d"] = GradLogPEstimator2d.cuda_calls
+    W = 512 + 2 * 32  # vocode_chunked's window (chunk 512, halo 32); 8 windows a batch
+    voc_calls = sum(1 if n <= W else math.ceil(math.ceil(n / 512) / 8) for n in frames)
+    want_art = {"resblock2d": 13 * N_STEPS * len(frames),
+                "downsample2d": 2 * N_STEPS * len(frames),
+                "conv_transpose2d": 2 * N_STEPS * len(frames),
+                "mrf_stage": 3 * voc_calls, "upsample1d": 2 * voc_calls}
+    emit({"artic_ms": {"card": card, "preset": "v6", "entry": "infer/pipeline.py: "
+                       "run_acoustic_inference(use_align=True) + run_sparc_vocoder",
+                       "utterances": utts, "trace": art_trace, "launches": art_launches,
+                       "expected_launches": want_art, "plain_calls_on_card": art_plain}})
+    if not all(u["ok"] for u in utts):
+        fail("artic_ms: a wrong artifact or waveform")
+    if [u["bucket"] for u in utts] != [128, 256, 512] or [
+            u["masked_stats"] for u in utts] != [False, True, True]:
+        fail(f"artic_ms: buckets {[u['bucket'] for u in utts]}, expected 128, 256, 512")
+    if art_launches != want_art:
+        fail(f"artic_ms: launch counts {art_launches}, expected {want_art}")
+    if any(art_plain.values()):
+        fail(f"artic_ms: a plain version ran on the card: {art_plain}")
+
+    # ---- 8c. card_vs_cpu_artic: the 120-frame utterance, card against CPU ------
+    cpu_artic = build_model(artic.config, device="cpu")
+    cpu_artic.load_state_dict(artic.state_dict())
+    short = dict(n_timesteps=4, temperature=1e6, use_align=True)
+    (p_gpu,) = pipeline.run_acoustic_inference(exp_a, artic, One(0), str(art_dir / "gpu"),
+                                               device=dev, **short)
+    (p_cpu,) = pipeline.run_acoustic_inference(exp_a, cpu_artic, One(0), str(art_dir / "cpu"),
+                                               device="cpu", **short)
+    a_gpu, a_cpu = np.load(p_gpu), np.load(p_cpu)
+    err = float(np.abs(a_gpu - a_cpu).max()) if a_gpu.shape == a_cpu.shape else math.inf
+    artic_check = dict(frames=int(a_gpu.shape[1]), steps=4, max_abs_err=err, tol=TOL_WAV,
+                       input_map_equal=bool(np.array_equal(a_gpu[28], a_cpu[28])),
+                       ok=a_gpu.shape == a_cpu.shape == (29, 120) and err <= TOL_WAV)
+    emit({"card_vs_cpu_artic": artic_check})
+    shutil.rmtree(art_dir, ignore_errors=True)
+    if not artic_check["ok"]:
+        fail("the articulatory artifact on the card disagrees with the CPU plain path")
+    del cpu_artic
 
     # ---- 9. training: the v2 preset through the port's Trainer --------------
     from arttts_tpu_torch.train import trainer as trainer_mod
@@ -1031,6 +1258,8 @@ def main():
                        ["upsample_packed :135 (_ups_kernel :103, pallas_call :168)"]),
     }
     kernels = []
+    launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name]}
+                        for name in meta}
     for name, (src, replaces, wrappers) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]
@@ -1051,7 +1280,8 @@ def main():
                 "library_device_ms": sum(c["library_device_ms"] for c in ev)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "tpu_wrappers": wrappers, "launches": launches[name],
+            "tpu_wrappers": wrappers, "launches": sum(launches_by_path[name].values()),
+            "launches_by_path": launches_by_path[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_abs_err"] / max(1.0, c["max_abs_ref"]) for c in mine),
             "tolerance": f"max|kernel-plain| <= {TOL_KERNEL} * max(1, max|plain|)",

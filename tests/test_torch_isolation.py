@@ -40,7 +40,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert "arttts_tpu_torch.ops.resblock2d" in res["imported"]
     for mod in ("ops.mrf", "ops.upsample", "infer.chunked", "ops.mas", "train.losses",
                 "train.step", "train.trainer", "data.batching", "core.checkpoint",
-                "utils.early_stopping"):
+                "utils.early_stopping", "text.ipa_features", "voxcommunis.utils",
+                "voxcommunis.io", "voxcommunis.decoder", "voxcommunis.data", "data.features",
+                "data.ms_datasets", "audio.io", "infer.pipeline"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -50,8 +52,17 @@ def test_port_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")(?:\.|\s|$)", re.M)
     files = sorted((ROOT / "arttts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for new in ("text/ipa_features.py", "voxcommunis/__init__.py", "voxcommunis/utils.py",
+                "voxcommunis/io.py", "voxcommunis/decoder.py", "voxcommunis/data.py",
+                "data/features.py", "data/ms_datasets.py", "audio/io.py", "infer/pipeline.py"):
+        assert f"arttts_tpu_torch/{new}" in names, new
+    # no read of the JAX package's data files either (its copies live in the port)
+    res = re.compile(r"arttts_tpu[/.]resources|[\"']resources[\"']")
     for f in files:
-        assert not pat.findall(f.read_text()), f
+        text = f.read_text()
+        assert not pat.findall(text), f
+        assert not res.findall(text), f
 
 
 def test_kernel_modules_need_no_cuda_until_called(monkeypatch):
@@ -250,3 +261,31 @@ def test_kernel_operands_are_checked_before_launch():
 
     with pytest.raises(ValueError, match="decision words"):
         mas._maximum_path_cuda(TooManyWords(), v, tx, ty)
+
+
+def test_artic_entries_need_the_card_by_default(monkeypatch, tmp_path):
+    """The articulatory serving entries (`infer/pipeline.py`) take the card
+    unless asked for the CPU, and raise where there is none."""
+    from arttts_tpu_torch.core import config
+    from arttts_tpu_torch.infer import pipeline, sampler
+    from arttts_tpu_torch.models.hifigan import build_sparc_vocoder
+    from arttts_tpu_torch.models.tts import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    exp = config.get_preset("v6")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(exp.model, device="cuda")
+    small = dataclasses.replace(exp.model, encoder=dataclasses.replace(
+        exp.model.encoder, n_channels=16, filter_channels=16, n_layers=1))
+    model = build_model(small, device="cpu")
+    item = {"x": np.ones((5, 26), np.float32), "spk": np.zeros(1024, np.float32),
+            "durations": np.ones(5, np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.run_acoustic_inference(exp, model, [item], str(tmp_path / "a"), use_align=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampler.encode_text(model, item["x"][None], np.array([5]), item["spk"][None])
+    np.save(tmp_path / "u.npy", np.zeros((29, 8), np.float32))
+    voc = build_sparc_vocoder(device="cpu", channels=32, spk_emb_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.run_sparc_vocoder(voc, [str(tmp_path / "u.npy")], np.zeros(1024, np.float32),
+                                   str(tmp_path / "w"), pitch_stats=(100.0, 20.0))

@@ -196,11 +196,11 @@ def test_score_network_dispatch_parity(masked_norm, B, T, lengths):
 def test_masked_statistics_matches_jax_gate():
     """The port reproduces where the JAX package's TPU fast path (masked
     statistics) runs, including its VMEM limit at long buckets."""
-    for n_feats in (16, 80):
-        j = dataclasses.replace(_jcfg(), n_feats=n_feats)
+    for n_feats, n_spks in ((16, 1), (80, 1), (16, 2)):  # n_spks 2: the v6 family
+        j = dataclasses.replace(_jcfg(), n_feats=n_feats, n_spks=n_spks)
         p = _pcfg(j)
         for T in list(range(128, 4097, 128)) + [100, 2052]:
-            assert masked_statistics(p, T) == unet2d_fast_supported(j, T), (n_feats, T)
+            assert masked_statistics(p, T) == unet2d_fast_supported(j, T), (n_feats, n_spks, T)
     assert masked_statistics(_pcfg(_jcfg(masked_norm=True)), 128)
 
 
