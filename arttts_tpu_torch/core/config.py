@@ -1,9 +1,10 @@
 """Typed configuration tree with named presets (a copy of
 `arttts_tpu/core/config.py`, which the port may not import: it pulls in JAX).
 
-The port serves `get_preset("v2")` (GradTTS text->mel) and the v6 family
-(`v6`, `v6_zhCN`, `msml1h`: GradTTArtic, VoxCommunis phone features ->
-SPARC articulatory tracks); the other presets are carried as plain data.
+The port serves every preset: the single-speaker family v0-v5 (ArtTTS,
+GradTTS and AttentionTTS, text or phnm3 -> SPARC tracks or mel) and the v6
+family (`v6`, `v6_zhCN`, `msml1h`: GradTTArtic, VoxCommunis phone features
+-> SPARC articulatory tracks).
 """
 
 from __future__ import annotations
@@ -318,3 +319,8 @@ def get_preset(name: str) -> ExperimentConfig:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+def register_preset(config: ExperimentConfig) -> None:
+    """Register a custom experiment preset (addressable by name in CLIs)."""
+    PRESETS[config.name] = config

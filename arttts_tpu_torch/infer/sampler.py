@@ -1,8 +1,10 @@
-"""Reverse-diffusion sampling and text -> wav serving (port of the Euler
-path of `arttts_tpu/infer/sampler.py`).
+"""Reverse-diffusion sampling and text -> wav serving (port of
+`arttts_tpu/infer/sampler.py`: its Euler, Heun and DPM-Solver++(2M) solvers
+and its serving entries).
 
 The JAX package traces the n-step loop into one program; here it is a
-Python loop of score evaluations, each on the hand-written kernels
+Python loop of score evaluations, each on the hand-written kernels for a
+2D U-Net decoder, on the module for the 1D ones
 (`models/unet2d_fast.make_score_fn`), and the vocoder runs its fast path
 (`models/hifigan.py:hifigan_forward_fast`, on kernels K4 and K5). Output
 lengths are static frame buckets with masking, as there. Random draws take
@@ -13,7 +15,10 @@ Entry points take `device` (default "cuda") and place their inputs there;
 the model and vocoder must already live on it. There is no fallback: with
 no card, a "cuda" call raises. `spk` is a multi-speaker model's raw speaker
 input (float pre-embeddings (B, 1024) for GradTTArtic, int ids otherwise),
-as in the JAX signatures. Only the Euler solver is ported.
+as in the JAX signatures. `solver` picks Euler (`reverse_diffusion`, the
+reference protocol), Heun (`reverse_diffusion_heun`, two evaluations a
+step) or DPM-Solver++(2M) (`reverse_diffusion_dpm2m`, one a step); all
+three call the same score function.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from arttts_tpu_torch.core.device import check_module, resolve
@@ -33,13 +39,6 @@ from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, seq
 def _on(device, *tensors):
     dev = resolve(device)
     return [None if t is None else torch.as_tensor(t).to(dev) for t in tensors]
-
-
-def _check_solver(solver: str) -> None:
-    if solver != "euler":
-        raise NotImplementedError(
-            f"solver {solver!r}: the port has the Euler solver only (Heun and DPM-2M are "
-            "ROADMAP A3)")
 
 
 @torch.inference_mode()
@@ -72,6 +71,102 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
 
 
 @torch.inference_mode()
+def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score_fn=None):
+    """Second-order (Heun) probability-flow ODE sampler: the ODE of
+    `reverse_diffusion` (stoc=False), dx/dt = -0.5 * beta(t) * (mu - x -
+    score(x, t)), from t=1 to t=0 on a uniform midpoint grid, two score
+    evaluations a step."""
+    dec = model.config.decoder
+    h = 1.0 / n_timesteps
+    B = z.shape[0]
+    if score_fn is None:
+        score_fn = make_score_fn(model, T=z.shape[1])
+
+    def drift(xt, t_scalar):
+        t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
+        beta = get_noise(t[:, None, None], dec.beta_min, dec.beta_max)
+        return 0.5 * (mu - xt - score_fn(xt, mask, mu, t, spk)) * beta * h
+
+    xt = z * mask
+    for i in range(n_timesteps):
+        t = 1.0 - (i + 0.5) * h
+        k1 = drift(xt, t)
+        x_mid = (xt - k1) * mask
+        k2 = drift(x_mid, max(t - h, 0.5 * h))
+        xt = (xt - 0.5 * (k1 + k2)) * mask
+    return xt
+
+
+def dpm2m_schedule(beta_min: float, beta_max: float, n_timesteps: int,
+                   t_end: float = 1e-2) -> np.ndarray:
+    """DPM-Solver++(2M)'s constants in float64, one row per update step
+    (n_timesteps - 1 rows) plus the final denoise row: t_i, sigma_i,
+    alpha_i, sigma_{i+1}/sigma_i, alpha_{i+1} * expm1(-h_i), a_i, b_i.
+
+    The GradTTS SDE is VP around the encoder prior: with y = x - mu,
+    alpha_t = exp(-0.5*Lambda(t)), sigma_t = sqrt(1 - exp(-Lambda(t))),
+    Lambda the cumulative noise; the grid is uniform in log-SNR from t=1 to
+    `t_end` (Lu et al. 2022, DPM-Solver++ Eq. 4.3)."""
+    if n_timesteps < 2:
+        raise ValueError("dpm solver needs n_timesteps >= 2")
+    bmin, bmax = float(beta_min), float(beta_max)
+    bd = bmax - bmin
+
+    def lam_of_t(t):
+        big_l = bmin * t + 0.5 * bd * t * t
+        return np.log(np.exp(-0.5 * big_l) / np.sqrt(-np.expm1(-big_l)))
+
+    lams = np.linspace(lam_of_t(1.0), lam_of_t(t_end), n_timesteps)
+    # invert lambda -> t: Lambda = log(1 + e^{-2 lambda}); quadratic in t
+    big_ls = np.logaddexp(0.0, -2.0 * lams)
+    ts = (-bmin + np.sqrt(bmin * bmin + 2.0 * bd * big_ls)) / bd
+    alphas = np.exp(-0.5 * big_ls)
+    sigmas = np.sqrt(-np.expm1(-big_ls))
+    hs = np.diff(lams)  # positive: lambda increases toward t=0
+    n_upd = n_timesteps - 1
+    a = np.ones(n_upd)
+    b = np.zeros(n_upd)
+    r = hs[:-1] / hs[1:]
+    a[1:] = 1.0 + 1.0 / (2.0 * r)
+    b[1:] = -1.0 / (2.0 * r)
+    steps = np.stack([ts[:-1], sigmas[:-1], alphas[:-1], sigmas[1:] / sigmas[:-1],
+                      alphas[1:] * np.expm1(-hs), a, b], axis=1)
+    final = np.array([[ts[-1], sigmas[-1], alphas[-1], 0.0, 0.0, 0.0, 0.0]])
+    return np.concatenate([steps, final])
+
+
+@torch.inference_mode()
+def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
+                            t_end: float = 1e-2, score_fn=None):
+    """DPM-Solver++(2M) for the probability-flow ODE: one score evaluation
+    a step, multistep second order, with a first-order denoise-to-x0 final
+    step. The model's score s gives the data prediction x0 = (y +
+    sigma_t^2 * s) / alpha_t. `n_timesteps` counts evaluations (>= 2); the
+    schedule is float64 NumPy (`dpm2m_schedule`), cast to z's type."""
+    consts = torch.as_tensor(
+        dpm2m_schedule(model.config.decoder.beta_min, model.config.decoder.beta_max,
+                       n_timesteps, t_end), dtype=z.dtype).tolist()
+    B = z.shape[0]
+    if score_fn is None:
+        score_fn = make_score_fn(model, T=z.shape[1])
+
+    def score_x0(y, t_scalar, sig, alp):
+        t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
+        s = score_fn((mu + y) * mask, mask, mu, t, spk)
+        return (y + sig * sig * s) / alp
+
+    y = (z - mu) * mask
+    x0_prev = y
+    for t_i, sig_i, alp_i, sig_ratio, alp_em1, a_i, b_i in consts[:-1]:
+        x0 = score_x0(y, t_i, sig_i, alp_i)
+        d = a_i * x0 + b_i * x0_prev
+        y = (sig_ratio * y - alp_em1 * d) * mask
+        x0_prev = x0
+    t_n, sig_n, alp_n = consts[-1][:3]
+    return (mu + score_x0(y, t_n, sig_n, alp_n)) * mask
+
+
+@torch.inference_mode()
 def encode_text(model, x, x_lengths, spk=None, device="cuda"):
     """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
     (B,) the summed ceil of the predicted durations (picks the bucket; one
@@ -101,7 +196,8 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
     diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
     (B, max_frames, n_feats), masked past y_lengths."""
-    _check_solver(solver)
+    if solver not in ("euler", "heun", "dpm"):
+        raise ValueError(f"unknown solver {solver!r}: euler, heun or dpm")
     mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations, spk)
     check_module(model, device)
     if x_durations is not None:
@@ -116,7 +212,12 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
     noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
     z = mu_y + noise / temperature
-    dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator)
+    if solver == "heun":
+        dec = reverse_diffusion_heun(model, z, y_mask, mu_y, n_timesteps, spk)
+    elif solver == "dpm":
+        dec = reverse_diffusion_dpm2m(model, z, y_mask, mu_y, n_timesteps, spk)
+    else:
+        dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator)
     return mu_y * y_mask, dec * y_mask, attn, y_lengths
 
 

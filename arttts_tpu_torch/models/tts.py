@@ -1,6 +1,6 @@
-"""GradTTS / GradTTArtic acoustic model (port of
-`arttts_tpu/models/tts.py:GradTTSModel` for the text and ipa_trait
-encoders, the speaker paths and the 2D U-Net decoder).
+"""GradTTS / ArtTTS / AttentionTTS / GradTTArtic acoustic model (port of
+`arttts_tpu/models/tts.py:GradTTSModel`: the text and ipa_trait encoders,
+the speaker paths, and the 2D U-Net, 1D U-Net and preblock decoders).
 
 The module holds the parameters and the submodule forwards; sampling is
 `arttts_tpu_torch/infer/sampler.py`, the training loss
@@ -22,6 +22,7 @@ from arttts_tpu_torch.core.config import ModelConfig
 from arttts_tpu_torch.core.device import resolve
 from arttts_tpu_torch.models.encoder import Encoder
 from arttts_tpu_torch.models.hifigan import SpeakerFT
+from arttts_tpu_torch.models.unet1d import GradLogPEstimator1d
 from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
 
 
@@ -37,13 +38,22 @@ class Diffusion(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         d = config.decoder
-        if d.kind != "unet2d" or d.compute_dtype != "float32":
-            raise NotImplementedError("the port serves the float32 2D U-Net decoder only")
-        self.estimator = GradLogPEstimator2d(
-            dim=d.dim, dim_mults=tuple(d.dim_mults), groups=d.groups, n_spks=config.n_spks,
-            spk_emb_dim=config.spk_emb_dim, n_feats=config.n_feats, pe_scale=d.pe_scale,
-            masked_norm=d.masked_norm,
-        )
+        if d.compute_dtype != "float32":
+            raise NotImplementedError("the port serves float32 decoders only (bfloat16 is "
+                                      "ROADMAP A6)")
+        kw = dict(dim=d.dim, dim_mults=tuple(d.dim_mults), groups=d.groups,
+                  n_spks=config.n_spks, spk_emb_dim=config.spk_emb_dim,
+                  n_feats=config.n_feats, pe_scale=d.pe_scale, masked_norm=d.masked_norm)
+        if d.kind in ("unet2d", "unet1d_preblock"):
+            # the reference's Diffusion1DPreblock keeps the 2D U-Net body and
+            # prepends the (1, 9) channel-attention PreBlock
+            self.estimator = GradLogPEstimator2d(
+                **kw, use_preblock=d.kind == "unet1d_preblock",
+                preblock_kernel=d.preblock_kernel)
+        elif d.kind == "unet1d":
+            self.estimator = GradLogPEstimator1d(**kw)
+        else:
+            raise ValueError(f"unknown decoder kind {d.kind!r}")
 
 
 class GradTTSModel(nn.Module):

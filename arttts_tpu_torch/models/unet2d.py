@@ -160,13 +160,21 @@ def attention(dim: int) -> Residual:
 
 
 class GradLogPEstimator2d(nn.Module):
-    """U-Net noise estimator over the (mu, x_t[, speaker]) image."""
+    """U-Net noise estimator over the (mu, x_t[, speaker]) image.
 
-    cuda_calls = 0  # forwards on a CUDA tensor (the serving path runs none)
+    `use_preblock` puts the preblock variant's wide (1, preblock_kernel)
+    block with channel attention (`models/unet1d.py:PreBlock`, state-dict
+    name `preblock`) in front of the downs, as the reference's
+    `Diffusion1DPreblock` does."""
+
+    cuda_calls = 0  # forwards on a CUDA tensor (the kernel path runs none)
+    resnet_block = ResnetBlock
+    block = Block
 
     def __init__(self, dim: int, dim_mults: Tuple[int, ...] = (1, 2, 4), groups: int = 8,
                  n_spks: int = 1, spk_emb_dim: int = 64, n_feats: int = 80,
-                 pe_scale: int = 1000, masked_norm: bool = False):
+                 pe_scale: int = 1000, masked_norm: bool = False, use_preblock: bool = False,
+                 preblock_kernel: int = 9):
         super().__init__()
         self.dim = dim
         self.n_feats = n_feats
@@ -180,8 +188,13 @@ class GradLogPEstimator2d(nn.Module):
                                          nn.Linear(spk_emb_dim * 4, n_feats))
 
         dims = [3 if n_spks > 1 else 2] + [dim * m for m in dim_mults]
+        self.preblock = None
+        if use_preblock:
+            from arttts_tpu_torch.models.unet1d import PreBlock
+
+            self.preblock = PreBlock(dims[0], dims[0], preblock_kernel)
         in_out = list(zip(dims[:-1], dims[1:]))
-        rb = lambda a, b: ResnetBlock(a, b, dim, groups, masked_norm)  # noqa: E731
+        rb = lambda a, b: self.resnet_block(a, b, dim, groups, masked_norm)  # noqa: E731
         self.downs = nn.ModuleList()
         for ind, (d_in, d_out) in enumerate(in_out):
             last = ind >= len(in_out) - 1
@@ -198,7 +211,7 @@ class GradLogPEstimator2d(nn.Module):
             self.ups.append(nn.ModuleList([
                 rb(d_out * 2, d_in), rb(d_in, d_in), attention(d_in), Upsample(d_in),
             ]))
-        self.final_block = Block(dim, dim, groups, masked_norm)
+        self.final_block = self.block(dim, dim, groups, masked_norm)
         self.final_conv = nn.Conv2d(dim, 1, 1)
 
     def time_embedding(self, t):
@@ -223,6 +236,8 @@ class GradLogPEstimator2d(nn.Module):
         t_emb = self.time_embedding(t)
         h = self.input_planes(x, mu, spk)  # (B, 2 or 3, F, T)
         mask_img = mask.transpose(1, 2)[:, :, None, :]  # (B, 1, 1, T)
+        if self.preblock is not None:
+            h = self.preblock(h, mask_img)
 
         hiddens = []
         masks = [mask_img]

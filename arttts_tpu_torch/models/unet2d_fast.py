@@ -164,10 +164,15 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_sta
 
 def make_score_fn(model, T: int) -> Callable:
     """The score function the sampler calls at frame bucket T:
-    (xt, mask, mu, t, spk) -> (B, T, n_feats), through the kernels at every
-    bucket, with the GroupNorm statistics the JAX package computes there.
-    `spk` is the raw speaker input (`model.embed_speaker`'s argument)."""
+    (xt, mask, mu, t, spk) -> (B, T, n_feats). A 2D U-Net decoder runs
+    through the kernels at every bucket, with the GroupNorm statistics the
+    JAX package computes there; the 1D and preblock decoders, which no
+    kernel covers (the JAX package's `unet2d_fast_supported` is false for
+    them), run the module (`model.estimate_noise`). `spk` is the raw
+    speaker input (`model.embed_speaker`'s argument)."""
     cfg = model.config
+    if cfg.decoder.kind in ("unet1d", "unet1d_preblock"):
+        return lambda xt, mask, mu, t, spk=None: model.estimate_noise(xt, mask, mu, t, spk)
     if not supported(cfg):
         raise NotImplementedError("the kernels implement the flagship 2D U-Net only")
     kw = KernelWeights(model.decoder.estimator)

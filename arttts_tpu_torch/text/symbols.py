@@ -5,21 +5,14 @@ pad + special + original punctuation + letters + @ARPAbet; the model's
 vocabulary is `len(symbols) + 1` with interspersed blanks.
 """
 
+from arttts_tpu_torch.text.cmudict import VALID_ARPABET
+
 PAD = "_"
-PUNCTUATION_ORI = "!'(),.:;? "
+PUNCTUATION = "!'(),.:;? \"|"  # extended set used by the ternary path
+PUNCTUATION_ORI = "!'(),.:;? "  # original Tacotron set used for symbol ids
 SPECIAL = "-"
 LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
 
-VALID_ARPABET = [
-    "AA", "AA0", "AA1", "AA2", "AE", "AE0", "AE1", "AE2", "AH", "AH0", "AH1",
-    "AH2", "AO", "AO0", "AO1", "AO2", "AW", "AW0", "AW1", "AW2", "AY", "AY0",
-    "AY1", "AY2", "B", "CH", "D", "DH", "EH", "EH0", "EH1", "EH2", "ER", "ER0",
-    "ER1", "ER2", "EY", "EY0", "EY1", "EY2", "F", "G", "HH", "IH", "IH0",
-    "IH1", "IH2", "IY", "IY0", "IY1", "IY2", "JH", "K", "L", "M", "N", "NG",
-    "OW", "OW0", "OW1", "OW2", "OY", "OY0", "OY1", "OY2", "P", "R", "S", "SH",
-    "T", "TH", "UH", "UH0", "UH1", "UH2", "UW", "UW0", "UW1", "UW2", "V", "W",
-    "Y", "Z", "ZH",
-]
 ARPABET = ["@" + s for s in VALID_ARPABET]
 
 symbols = [PAD] + list(SPECIAL) + list(PUNCTUATION_ORI) + list(LETTERS) + ARPABET

@@ -4,7 +4,8 @@ arrays) -> the port's state dicts.
 The port's modules carry the reference's torch state-dict names, so this is
 the exact inverse of the JAX package's converters
 (`arttts_tpu/utils/torch_convert_acoustic.py:convert_grad_tts`,
-`convert_grad_ttartic`, `arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
+`convert_estimator1d`, `convert_grad_ttartic`,
+`arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
 `convert_sparc_generator`, `convert_spk_sparc`). Layouts:
 
   flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
@@ -101,9 +102,25 @@ def _block2d(sd, key, p) -> None:
     sd[f"{key}.block.1.bias"] = _t(p["GroupNorm_0"]["bias"])
 
 
-def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
-                         num_resolutions: int = 3) -> Dict[str, torch.Tensor]:
-    """Flax `GradLogPEstimator2d` subtree -> `GradLogPEstimator2d` state dict."""
+def _art_attention(sd, key, p) -> None:
+    """ArtChannelsAttention: (1, 3) qkv conv without bias, 1x1 output conv."""
+    sd[f"{key}.to_qkv.weight"] = _t(np.transpose(np.asarray(p["Conv_0"]["kernel"]),
+                                                 (3, 2, 0, 1)))
+    _dense(sd, f"{key}.to_out", p["Conv_1"], conv_dims=2)
+
+
+def _block1d(sd, key, p) -> None:
+    _conv2d(sd, f"{key}.block.0", p["Conv_0"])
+    _art_attention(sd, f"{key}.block.1", p["ArtChannelsAttention_0"])
+    sd[f"{key}.block.2.weight"] = _t(p["GroupNorm_0"]["scale"])
+    sd[f"{key}.block.2.bias"] = _t(p["GroupNorm_0"]["bias"])
+
+
+def _estimator(est: Dict, prefix: str, num_resolutions: int, kind: str,
+               block) -> Dict[str, torch.Tensor]:
+    """The U-Net skeleton shared by both estimators; `kind` "2d" or "1d"
+    names the resnet and final blocks (`ResnetBlock{kind}_k`,
+    `Block{kind}_0`), `block` maps one block."""
     sd: Dict[str, torch.Tensor] = {}
     p = prefix
     _dense(sd, f"{p}mlp.0", est["Dense_0"])
@@ -111,6 +128,9 @@ def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
     if "Dense_2" in est:  # the speaker plane's MLP (n_spks > 1)
         _dense(sd, f"{p}spk_mlp.0", est["Dense_2"])
         _dense(sd, f"{p}spk_mlp.2", est["Dense_3"])
+    if "PreBlock_0" in est:  # the preblock decoder's wide channel-attention block
+        _conv2d(sd, f"{p}preblock.block.0", est["PreBlock_0"]["Conv_0"])
+        _art_attention(sd, f"{p}preblock.block.1", est["PreBlock_0"]["ArtChannelsAttention_0"])
     # JAX call order: downs' resnets, mid, ups' resnets; attentions likewise
     res_keys = [f"{p}downs.{lv}.{j}" for lv in range(num_resolutions) for j in (0, 1)]
     res_keys += [f"{p}mid_block1", f"{p}mid_block2"]
@@ -118,9 +138,9 @@ def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
     attn_keys = [f"{p}downs.{lv}.2" for lv in range(num_resolutions)] + [f"{p}mid_attn"]
     attn_keys += [f"{p}ups.{u}.2" for u in range(num_resolutions - 1)]
     for k, key in enumerate(res_keys):
-        r = est[f"ResnetBlock2d_{k}"]
-        _block2d(sd, f"{key}.block1", r["Block2d_0"])
-        _block2d(sd, f"{key}.block2", r["Block2d_1"])
+        r = est[f"ResnetBlock{kind}_{k}"]
+        block(sd, f"{key}.block1", r[f"Block{kind}_0"])
+        block(sd, f"{key}.block2", r[f"Block{kind}_1"])
         _dense(sd, f"{key}.mlp.1", r["Dense_0"])
         if "Conv_0" in r:
             _dense(sd, f"{key}.res_conv", r["Conv_0"], conv_dims=2)
@@ -134,17 +154,34 @@ def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
         up = est[f"ConvTranspose2dTorch_{lv}"]
         sd[f"{p}ups.{lv}.3.conv.weight"] = _t(up["weight"])
         sd[f"{p}ups.{lv}.3.conv.bias"] = _t(up["bias"])
-    _block2d(sd, f"{p}final_block", est["Block2d_0"])
+    block(sd, f"{p}final_block", est[f"Block{kind}_0"])
     _dense(sd, f"{p}final_conv", est["Conv_0"], conv_dims=2)
     return sd
 
 
+def estimator_state_dict(est: Dict, prefix: str = "decoder.estimator.",
+                         num_resolutions: int = 3) -> Dict[str, torch.Tensor]:
+    """Flax `GradLogPEstimator2d` subtree (with its `PreBlock_0`, if any) ->
+    `GradLogPEstimator2d` state dict."""
+    return _estimator(est, prefix, num_resolutions, "2d", _block2d)
+
+
+def estimator1d_state_dict(est: Dict, prefix: str = "decoder.estimator.",
+                           num_resolutions: int = 3) -> Dict[str, torch.Tensor]:
+    """Flax `GradLogPEstimator1d` subtree -> `GradLogPEstimator1d` state
+    dict (the inverse of `convert_estimator1d`)."""
+    return _estimator(est, prefix, num_resolutions, "1d", _block1d)
+
+
 def grad_tts_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     """`GradTTSModel` params (`variables["params"]`) -> the port's
-    `GradTTSModel` state dict: encoder, estimator and, for a multi-speaker
-    model, its speaker embedding (`spk_table` -> `spk_emb`)."""
+    `GradTTSModel` state dict: encoder, estimator (2D, with or without the
+    preblock, or 1D) and, for a multi-speaker model, its speaker embedding
+    (`spk_table` -> `spk_emb`)."""
     sd = encoder_state_dict(params["encoder"])
-    sd.update(estimator_state_dict(params["estimator"]))
+    est = params["estimator"]
+    sd.update(estimator1d_state_dict(est) if "ResnetBlock1d_0" in est
+              else estimator_state_dict(est))
     if "spk_table" in params:
         sd["spk_emb.weight"] = _t(params["spk_table"]["embedding"])
     return sd

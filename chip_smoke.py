@@ -79,7 +79,19 @@ fatal on failure (exit code 1, no result line):
    never on the card; a second `Trainer` resumes from `grad_1`; one more
    step runs under `torch.profiler` (kernel time by kind, idle share);
    then one `train_step` on the card is held against the same step on the
-   CPU (B=2, short utterances, pinned draws, dropout off).
+   CPU (B=2, short utterances, pinned draws, dropout off);
+10. cli: every single-speaker preset at full width from seeded checkpoints,
+   on a seeded corpus of four utterances it writes under
+   `build/chip_smoke_cli/` (removed after), through `cli.synthesize.main`
+   and `cli.vocode.main` in process: v0, v1 (Euler@50, Heun@15, DPM@10,
+   `--use-align`), v2 (the three solvers at B=1 and at `--batch-size 4`),
+   v3 (also `--use-align`), v4, v5 and v5_preblock, then both vocode
+   modes. Each run's walls and K1-K5 launches are printed and held to the
+   counts its evaluations give (K1-K3 on every 2D preset, none on v5's 1D
+   and preblock decoders, K4/K5 in every vocode run); the B=4 artifacts
+   are held against per-sentence ones with masked statistics, v1 (three
+   solvers) and v5 on the card against the same CLI runs on the CPU, and
+   v3, v2 at B=4 and v5 are profiled for device time an evaluation.
 
 Prints JSON lines; the `{"kernels": [...]}` line and the card line come
 before the last, which is `{"ok": true, "device": {...}}`.
@@ -122,6 +134,330 @@ def fail(msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+CLI_TEXTS = [
+    "the quick brown fox jumps over the lazy dog.",
+    "printing was done in a different way.",
+    "speech synthesis from a list of files, on one card.",
+    "four sentences make one batch of the serving mode.",
+]
+CLI_PHONES = ["h", "ə", "l", "oʊ", "w", "ɜ˞", "d", "aɪ", "t", "s", "n", "i", "eɪ", "k", "m",
+              "p", "b", "f", "v", "z", "ʃ", "æ", "ɑ", "ɪ", "u"]
+CLI_PRESETS = ("v0", "v1", "v2", "v3", "v4", "v5", "v5_preblock")
+# the JAX package's gated fast points (tests/test_heun_sampler.py:47,
+# tests/test_dpm_sampler.py:96)
+HEUN_STEPS, DPM_STEPS = 15, 10
+
+
+def write_cli_corpus(root):
+    """A seeded single-speaker corpus in the JAX package's layouts under
+    `root`: 22.05 kHz wavs, SPARC tracks (`encoded/emasrc`), phnm3
+    alignments with their tracks (`phnm/phnm3`, `phnm/encoded_audio_en/emasrc`),
+    a text and a phnm3 filelist of four utterances, a one-utterance phnm3
+    list of about 4 s for the card-vs-CPU legs, full-width port
+    checkpoints of every single-speaker preset (`ckpt/{preset}`), a
+    HiFi-GAN `hifigan.pt` and a SPARC checkpoint in the reference's
+    layouts, and a 1024-d speaker pre-embedding."""
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.audio.io import save_wav
+    from arttts_tpu_torch.core.checkpoint import save_checkpoint
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.models.hifigan import build_sparc_vocoder, build_vocoder
+    from arttts_tpu_torch.models.tts import build_model
+    from arttts_tpu_torch.text.phnms import build_phnm3
+
+    r = np.random.default_rng(11)
+    for d in ("wavs", "encoded/emasrc", "phnm/phnm3", "phnm/encoded_audio_en/emasrc"):
+        (root / d).mkdir(parents=True)
+    text_lines, phnm_lines = [], []
+    for i, text in enumerate(CLI_TEXTS + ["(a longer alignment)"]):
+        dur = 4.0 if i == len(CLI_TEXTS) else float(r.uniform(1.2, 2.2))
+        t = np.arange(int(22050 * dur)) / 22050.0
+        wav = 0.2 * np.sin(2 * np.pi * (110 + 30 * i) * t) + 0.02 * r.standard_normal(t.size)
+        save_wav(root / "wavs" / f"utt{i:03d}.wav", wav.astype(np.float32), 22050)
+        art = r.standard_normal((int(dur * 50), 14)).astype(np.float32)
+        art[:, 12] = 120 + 25 * art[:, 12]  # pitch in Hz
+        np.save(root / "encoded" / "emasrc" / f"utt{i:03d}.npy", art)
+        np.save(root / "phnm" / "encoded_audio_en" / "emasrc" / f"utt{i:03d}.npy", art)
+        n = max(4, int(dur / 0.08))
+        cuts = np.sort(r.uniform(0.0, dur, n - 1))
+        np.save(root / "phnm" / "phnm3" / f"utt{i:03d}_phnm3.npy",
+                build_phnm3(list(r.choice(CLI_PHONES, n)), [0.0, *cuts, dur]))
+        phnm_lines.append(f"DUMMY/wavs/utt{i:03d}.wav|DUMMY/phnm/phnm3/utt{i:03d}_phnm3.npy")
+        text_lines.append(f"DUMMY/wavs/utt{i:03d}.wav|{text}")
+    (root / "text.txt").write_text("\n".join(text_lines[:-1]))
+    (root / "phnm.txt").write_text("\n".join(phnm_lines[:-1]))
+    (root / "short.txt").write_text(phnm_lines[-1])
+    for k, preset in enumerate(CLI_PRESETS):
+        model = build_model(get_preset(preset).model, device="cpu", seed=20 + k)
+        save_checkpoint(str(root / "ckpt"), preset, model.state_dict())
+    torch.save({"generator": build_vocoder(device="cpu", seed=1).state_dict()},
+               root / "hifigan.pt")
+    parts = {"spk_ft": {}, "generator": {}}
+    for key, v in build_sparc_vocoder(device="cpu", seed=2).state_dict().items():
+        head, rest = key.split(".", 1)
+        parts[head][rest] = v
+    torch.save({"config": {"sr": 16000}, "state_dict": parts}, root / "sparc.ckpt")
+    np.save(root / "spk.npy", r.standard_normal(1024).astype(np.float32))
+
+
+def cli_phase(card, dev, counters, plains, kernel_time, families):
+    """Phase 10 (`cli`): every single-speaker preset from a filelist through
+    `cli.synthesize.main` and `cli.vocode.main`, in process, at full width
+    with seeded weights; returns the K1-K5 launches summed over its runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from arttts_tpu_torch.audio.io import load_wav
+    from arttts_tpu_torch.cli import synthesize as cli_synthesize
+    from arttts_tpu_torch.cli import vocode as cli_vocode
+    from arttts_tpu_torch.core.config import get_preset, register_preset
+    from arttts_tpu_torch.infer import pipeline
+    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
+
+    root = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_cli_corpus(root)
+    corpus_s = time.perf_counter() - t0
+    # v2 with padding-exact statistics: the per-sentence side of the batched check
+    v2 = get_preset("v2")
+    register_preset(dataclasses.replace(v2, name="v2_masked", model=dataclasses.replace(
+        v2.model, decoder=dataclasses.replace(v2.model.decoder, masked_norm=True))))
+    (root / "ckpt" / "v2_masked").symlink_to(root / "ckpt" / "v2")
+
+    decodes = []  # (wall s, batch, bucket) of each decode call: the pipeline's sampler calls
+    originals = {n: getattr(pipeline, n) for n in ("synthesize", "synthesize_from_encoding")}
+
+    def timed(fn):
+        def wrap(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            decodes.append((time.perf_counter() - t, out[1].shape[0], out[1].shape[1]))
+            return out
+        return wrap
+
+    for n, fn in originals.items():
+        setattr(pipeline, n, timed(fn))
+
+    def reset():
+        for f in counters + plains:
+            setattr(f, "launches" if f in counters else "cuda_calls", 0)
+        GradLogPEstimator2d.cuda_calls = 0
+        decodes.clear()
+
+    runs, failures = [], []
+
+    def synth(tag, preset, filelist, solver="euler", steps=N_STEPS, extra=(), device="cuda"):
+        reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        paths = cli_synthesize.main([
+            "--preset", preset, "--ckpt", str(root / "ckpt" / preset), "--filelist",
+            str(root / filelist), "--data-root", str(root), "--artic-dir", str(root / "encoded"),
+            "--save-dir", str(root / "art" / tag), "--n-timesteps", str(steps), "--solver",
+            solver, "--device", device, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        arrs = {Path(p).name: np.load(p) for p in paths}
+        launches = {f.__name__: f.launches for f in counters}
+        plain = {f.__name__: f.cuda_calls for f in plains}
+        is_mel = get_preset(preset).model.n_feats == 80
+        evals = steps * (2 if solver == "heun" else 1) * len(decodes)
+        kernels_2d = get_preset(preset).model.decoder.kind == "unet2d"
+        want = {"resblock2d": 13 * evals * kernels_2d, "downsample2d": 2 * evals * kernels_2d,
+                "conv_transpose2d": 2 * evals * kernels_2d, "mrf_stage": 0, "upsample1d": 0}
+        frames = [int(a.shape[1]) for a in arrs.values()]
+        audio_s = sum(f * 256 / 22050 if is_mel else f / 50 for f in frames)
+        decode_s = sum(w for w, _, _ in decodes)
+        rec = dict(run=tag, preset=preset, solver=solver, steps=steps, device=device,
+                   args=list(extra), files=sorted(arrs), frames=frames,
+                   decode_calls=[dict(wall_s=w, batch=b, bucket=T) for w, b, T in decodes],
+                   evaluations=evals, cli_wall_s=wall, decode_wall_s=decode_s,
+                   decode_wall_per_utterance_s=decode_s / max(1, len(frames)),
+                   decode_rtf=decode_s / audio_s if audio_s else None, launches=launches,
+                   plain_calls_on_card=plain,
+                   module_path_calls_on_card=GradLogPEstimator2d.cuda_calls,
+                   ok=len(arrs) > 0 and all(a.shape[0] == (161 if is_mel else 29)
+                                            and np.isfinite(a).all() for a in arrs.values()))
+        if device == "cuda":
+            if launches != want or any(plain.values()):
+                failures.append(f"{tag}: launches {launches}, expected {want}; plain {plain}")
+            rec["expected_launches"] = want
+        if not rec["ok"]:
+            failures.append(f"{tag}: a wrong or non-finite artifact")
+        runs.append(rec)
+        return arrs
+
+    def vocode(tag, mode, pred):
+        reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        extra = (["--spk-ft", str(root / "spk.npy"), "--pitch-stats", "140", "30"]
+                 if mode == "sparc" else [])
+        paths = cli_vocode.main([
+            "--mode", mode, "--torch-ckpt",
+            str(root / ("sparc.ckpt" if mode == "sparc" else "hifigan.pt")), "--pred-dir",
+            str(root / "art" / pred), "--save-dir", str(root / "wav" / tag), "--device",
+            "cuda", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {f.__name__: f.launches for f in counters}
+        frames = [np.load(root / "art" / pred / (Path(p).stem + ".npy")).shape[1] for p in paths]
+        W = 512 + 2 * 32  # vocode_chunked's window; 8 windows a batch
+        calls = sum(1 if n <= W else math.ceil(math.ceil(n / 512) / 8) for n in frames)
+        want = {"resblock2d": 0, "downsample2d": 0, "conv_transpose2d": 0,
+                "mrf_stage": 3 * calls, "upsample1d": 2 * calls}
+        sr_want = 16000 if mode == "sparc" else 22050
+        ok = len(paths) == len(frames) > 0
+        for p, n in zip(paths, frames):
+            wav, sr = load_wav(p)
+            ok = ok and sr == sr_want and wav.shape == (n * 256,) and bool(np.isfinite(wav).all())
+        runs.append(dict(run=tag, mode=mode, artifacts=pred, wavs=len(paths), frames=frames,
+                         cli_wall_s=wall, rtf=wall / (sum(frames) * 256 / sr_want),
+                         launches=launches, expected_launches=want, ok=ok))
+        if launches != want or not launches["mrf_stage"] or not launches["upsample1d"]:
+            failures.append(f"{tag}: launches {launches}, expected {want}")
+        if not ok:
+            failures.append(f"{tag}: a wrong or non-finite waveform")
+
+    # warm-up (allocator, cuDNN plans of the encoders, the mel extractor), not counted
+    synth("warm_text", "v2", "text.txt", steps=2)
+    synth("warm_phnm", "v1", "phnm.txt", steps=2)
+    runs.clear()
+    failures.clear()
+    total = dict.fromkeys((f.__name__ for f in counters), 0)
+
+    def count():
+        for f in counters:
+            total[f.__name__] += f.launches
+
+    plan = [("v0", "v0", "text.txt", "euler", N_STEPS, ()),
+            ("v1", "v1", "phnm.txt", "euler", N_STEPS, ()),
+            ("v1_heun15", "v1", "phnm.txt", "heun", HEUN_STEPS, ()),
+            ("v1_dpm10", "v1", "phnm.txt", "dpm", DPM_STEPS, ()),
+            ("v1_use_align", "v1", "phnm.txt", "euler", N_STEPS, ("--use-align",)),
+            ("v2", "v2", "text.txt", "euler", N_STEPS, ()),
+            ("v2_heun15", "v2", "text.txt", "heun", HEUN_STEPS, ()),
+            ("v2_dpm10", "v2", "text.txt", "dpm", DPM_STEPS, ())]
+    b4 = ("--batch-size", "4", "--temperature", "1e6")
+    for solver, steps in (("euler", N_STEPS), ("heun", HEUN_STEPS), ("dpm", DPM_STEPS)):
+        plan.append((f"v2_b4_{solver}", "v2", "text.txt", solver, steps, b4))
+        plan.append((f"v2_masked_b1_{solver}", "v2_masked", "text.txt", solver, steps,
+                     ("--temperature", "1e6")))
+    plan += [("v3", "v3", "phnm.txt", "euler", N_STEPS, ()),
+             ("v3_use_align", "v3", "phnm.txt", "euler", N_STEPS, ("--use-align",)),
+             ("v4", "v4", "text.txt", "euler", N_STEPS, ()),
+             ("v5", "v5", "phnm.txt", "euler", N_STEPS, ()),
+             ("v5_preblock", "v5_preblock", "phnm.txt", "euler", N_STEPS, ())]
+    arts = {}
+    for tag, preset, fl, solver, steps, extra in plan:
+        arts[tag] = synth(tag, preset, fl, solver, steps, extra)
+        count()
+    for tag, mode in (("v0", "sparc"), ("v1", "sparc"), ("v4", "sparc"), ("v5", "sparc"),
+                      ("v5_preblock", "sparc"), ("v2", "mel"), ("v3", "mel"), ("v2_b4_dpm", "mel")):
+        vocode(f"{tag}_wav", mode, tag)
+        count()
+    k123 = ("resblock2d", "downsample2d", "conv_transpose2d")
+    for rec in runs:
+        if "preset" not in rec:
+            continue
+        on_2d = get_preset(rec["preset"]).model.decoder.kind == "unet2d"
+        if any((rec["launches"][k] > 0) != on_2d for k in k123):
+            failures.append(f"{rec['run']}: K1-K3 launches {rec['launches']} on "
+                            f"{get_preset(rec['preset']).model.decoder.kind}")
+
+    # v1's dataset (as the JAX package's) carries no durations: --use-align
+    # changes nothing there; v3's takes the phnm3 durations
+    same = {n: float(np.abs(a - arts["v1"][n]).max()) for n, a in arts["v1_use_align"].items()}
+
+    # batched (B=4, masked statistics) against per-sentence with masked statistics,
+    # temperature 1e6; DPM's data prediction divides by alpha(1) = 0.0066, so
+    # its tolerance is TOL_WAV of max(1, max|per-sentence|)
+    batched = {}
+    for solver in ("euler", "heun", "dpm"):
+        b, s_ = arts[f"v2_b4_{solver}"], arts[f"v2_masked_b1_{solver}"]
+        err = max(float(np.abs(b[n] - s_[n]).max()) if b[n].shape == s_[n].shape else math.inf
+                  for n in s_)
+        scale = (max(1.0, max(float(np.abs(a).max()) for a in s_.values()))
+                 if solver == "dpm" else 1.0)
+        batched[solver] = dict(files=sorted(b), max_abs_err=err, tol=TOL_WAV * scale,
+                               input_map_equal=all(np.array_equal(b[n][160], s_[n][160])
+                                                   for n in s_),
+                               ok=sorted(b) == sorted(s_) and err <= TOL_WAV * scale)
+        if not batched[solver]["ok"]:
+            failures.append(f"batched vs per-sentence ({solver}): {batched[solver]}")
+
+    # where the time goes: v3 (80 rows, the ipa_trait encoder), v2 at B=4 and
+    # v5's module path, 10 steps each, profiled (device time by family)
+    traces = {}
+    for tag, preset, fl, extra in (("v3", "v3", "phnm.txt", ()),
+                                   ("v2_b4", "v2", "text.txt", b4),
+                                   ("v5", "v5", "phnm.txt", ())):
+        reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            cli_synthesize.main(["--preset", preset, "--ckpt", str(root / "ckpt" / preset),
+                                 "--filelist", str(root / fl), "--data-root", str(root),
+                                 "--save-dir", str(root / "art" / f"prof_{tag}"),
+                                 "--n-timesteps", "10", "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        _, busy, fam, calls = kernel_time(prof)
+        evals = 10 * len(decodes)
+        traces[tag] = dict(decode_calls=[dict(wall_s=w, batch=b, bucket=T) for w, b, T in decodes],
+                           evaluations=evals, cli_wall_s_under_profiler=wall,
+                           device_kernel_ms=busy, kernel_ms_by_family=fam,
+                           launches_by_family=calls,
+                           k1_k2_k3_device_ms_per_evaluation=sum(
+                               fam[f] for f in list(families)[:3]) / evals,
+                           device_ms_per_evaluation=busy / evals,
+                           decode_wall_ms_per_evaluation=1e3 * sum(w for w, _, _ in decodes)
+                           / evals)
+
+    # card against CPU: the 4 s alignment on v1 (each solver) and v5, 4 steps,
+    # temperature 1e6; the input map exactly, the rest within TOL_WAV (DPM: of
+    # max(1, max|cpu|), as above)
+    vs_cpu = {}
+    for tag, preset, solver in (("v1_euler", "v1", "euler"), ("v1_heun", "v1", "heun"),
+                                ("v1_dpm", "v1", "dpm"), ("v5_euler", "v5", "euler")):
+        sides = {}
+        for device in ("cuda", "cpu"):
+            sides[device] = synth(f"vs_cpu_{tag}_{device}", preset, "short.txt", solver, 4,
+                                  ("--temperature", "1e6"), device=device)
+        (name, g), (_, c) = next(iter(sides["cuda"].items())), next(iter(sides["cpu"].items()))
+        err = float(np.abs(g - c).max()) if g.shape == c.shape else math.inf
+        scale = max(1.0, float(np.abs(c).max())) if solver == "dpm" else 1.0
+        vs_cpu[tag] = dict(file=name, frames=int(g.shape[1]), steps=4, max_abs_err=err,
+                           max_abs_cpu=float(np.abs(c).max()), tol=TOL_WAV * scale,
+                           input_map_equal=bool(np.array_equal(g[28], c[28])),
+                           ok=g.shape == c.shape and err <= TOL_WAV * scale
+                           and bool(np.array_equal(g[28], c[28])))
+        if not vs_cpu[tag]["ok"]:
+            failures.append(f"card vs CPU ({tag}): {vs_cpu[tag]}")
+    cpu_runs = [r for r in runs if r.get("device") == "cpu"]
+    runs[:] = [r for r in runs if r.get("device") != "cpu"]
+
+    for n, fn in originals.items():
+        setattr(pipeline, n, fn)
+    emit({"cli": {"card": card, "corpus_s": corpus_s,
+                  "entry": "cli.synthesize.main / cli.vocode.main, in process",
+                  "runs": runs, "use_align_v1_max_diff_to_v1": same,
+                  "batched_vs_per_sentence": batched, "traces": traces,
+                  "card_vs_cpu": vs_cpu,
+                  "cpu_legs_cli_wall_s": {r["run"]: r["cli_wall_s"] for r in cpu_runs},
+                  "launches": total}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("cli: " + "; ".join(failures))
+    return total
 
 
 def main():
@@ -1237,6 +1573,9 @@ def main():
         fail(f"card vs CPU step: losses {loss_rel}, worst gradient {grad_name} at "
              f"{grad_worst:.3g} of its tolerance")
 
+    # ---- 10. cli: every single-speaker preset through the port's CLIs --------
+    cli_launches = cli_phase(card, dev, counters, plains, kernel_time, families)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -1258,8 +1597,8 @@ def main():
                        ["upsample_packed :135 (_ups_kernel :103, pallas_call :168)"]),
     }
     kernels = []
-    launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name]}
-                        for name in meta}
+    launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name],
+                               "cli": cli_launches[name]} for name in meta}
     for name, (src, replaces, wrappers) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]

@@ -42,7 +42,10 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "train.step", "train.trainer", "data.batching", "core.checkpoint",
                 "utils.early_stopping", "text.ipa_features", "voxcommunis.utils",
                 "voxcommunis.io", "voxcommunis.decoder", "voxcommunis.data", "data.features",
-                "data.ms_datasets", "audio.io", "infer.pipeline"):
+                "data.ms_datasets", "audio.io", "infer.pipeline", "text.cleaners",
+                "text.numbers", "text.cmudict", "text.sequence", "text.converters",
+                "text.phnms", "data.filelist", "audio.mel", "data.datasets", "core.paths",
+                "core.runtime", "models.unet1d", "cli.synthesize", "cli.vocode"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -55,9 +58,17 @@ def test_port_sources_name_no_jax_import():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for new in ("text/ipa_features.py", "voxcommunis/__init__.py", "voxcommunis/utils.py",
                 "voxcommunis/io.py", "voxcommunis/decoder.py", "voxcommunis/data.py",
-                "data/features.py", "data/ms_datasets.py", "audio/io.py", "infer/pipeline.py"):
+                "data/features.py", "data/ms_datasets.py", "audio/io.py", "infer/pipeline.py",
+                "text/cleaners.py", "text/numbers.py", "text/cmudict.py", "text/sequence.py",
+                "text/converters.py", "text/phnms.py", "data/filelist.py", "audio/mel.py",
+                "data/datasets.py", "core/paths.py", "core/runtime.py", "models/unet1d.py",
+                "cli/synthesize.py", "cli/vocode.py"):
         assert f"arttts_tpu_torch/{new}" in names, new
     # no read of the JAX package's data files either (its copies live in the port)
+    from arttts_tpu_torch.core import paths
+
+    assert paths.CMUDICT_PATH == ROOT / "arttts_tpu_torch" / "resources" / "cmu_dictionary"
+    assert paths.CMUDICT_PATH.is_file()
     res = re.compile(r"arttts_tpu[/.]resources|[\"']resources[\"']")
     for f in files:
         text = f.read_text()
@@ -289,3 +300,23 @@ def test_artic_entries_need_the_card_by_default(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.run_sparc_vocoder(voc, [str(tmp_path / "u.npy")], np.zeros(1024, np.float32),
                                    str(tmp_path / "w"), pitch_stats=(100.0, 20.0))
+
+    # the single-speaker serving path: mel extraction, the mel vocoder runner
+    # and both CLIs (no --device: the card)
+    from arttts_tpu_torch.audio.mel import MelSpectrogram
+    from arttts_tpu_torch.cli import synthesize, vocode
+    from arttts_tpu_torch.models.hifigan import build_vocoder
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MelSpectrogram()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.run_mel_vocoder(build_vocoder(device="cpu", upsample_initial_channel=32),
+                                 [str(tmp_path / "u.npy")], str(tmp_path / "w"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthesize.main(["--preset", "v1", "--ckpt", str(tmp_path / "ckpt"), "--filelist",
+                         str(tmp_path / "list.txt"), "--save-dir", str(tmp_path / "cli_a")])
+    for mode in ("mel", "sparc"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            vocode.main(["--mode", mode, "--torch-ckpt", str(tmp_path / "g.pt"), "--pred-dir",
+                         str(tmp_path), "--save-dir", str(tmp_path / "cli_w")])
+    assert not (tmp_path / "cli_a").exists() and not (tmp_path / "cli_w").exists()
