@@ -5,10 +5,12 @@ Batches pad to a small set of static buckets (text and frame axes
 independently), as in the JAX package. Length-grouped ordering follows the
 reference samplers: shuffle mega-batches of batch_size * mult, sort by
 length inside, emit the longest batch first (an out-of-memory error shows
-at once). Batches are numpy arrays; the trainer moves them to the card.
+at once). Multilingual sets (the v6 family) may instead draw their indices
+by temperature-based language upsampling (`voxcommunis/sampler.py`).
+Batches are numpy arrays; the trainer moves them to the card.
 
-Multi-host row slicing and language upsampling are not ported yet
-(ROADMAP A13): asking for them raises.
+Multi-host row slicing is not ported yet (ROADMAP A13): asking for it
+raises.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
+from arttts_tpu_torch.voxcommunis.sampler import LengthGroupedLanguageUpSampler
 
 DEFAULT_TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 DEFAULT_FRAME_BUCKETS = (128, 256, 384, 512, 640, 768, 1024, 1536, 2048)
@@ -36,10 +39,11 @@ def pad_batch(
     frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
     min_frames: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
-    """Zero-pad a list of {"x", "y"} items into one dense batch: x (T_x,)
-    symbol ids, y (T_y, C) float. `min_frames` lets training guarantee
-    T_y >= out_size for the segment cut. (The JAX package's trait inputs
-    and speaker and duration fields come with ROADMAP A8.)"""
+    """Zero-pad a list of {"x", "y"[, "spk", "durations"]} items into one
+    dense batch: x (T_x,) symbol ids or (T_x, C) float traits, y (T_y, C)
+    float. `min_frames` lets training guarantee T_y >= out_size for the
+    segment cut. "spk" (an int id or a vector) is stacked; "durations"
+    (T_x,) is zero-padded to (B, T_x) float32."""
     B = len(items)
     x_lens = np.array([it["x"].shape[0] for it in items], np.int32)
     y_lens = np.array([it["y"].shape[0] for it in items], np.int32)
@@ -47,12 +51,24 @@ def pad_batch(
     frames = int(y_lens.max()) if min_frames is None else max(int(y_lens.max()), min_frames)
     T_y = pick_bucket(fix_len_compatibility(frames), frame_buckets)
 
-    x = np.zeros((B, T_x), dtype=items[0]["x"].dtype)
+    x0 = items[0]["x"]
+    if x0.ndim == 1:
+        x = np.zeros((B, T_x), dtype=x0.dtype)
+    else:
+        x = np.zeros((B, T_x, x0.shape[1]), dtype=np.float32)
     y = np.zeros((B, T_y, items[0]["y"].shape[1]), dtype=np.float32)
     for i, it in enumerate(items):
         x[i, : x_lens[i]] = it["x"]
         y[i, : y_lens[i]] = it["y"]
-    return {"x": x, "x_lengths": x_lens, "y": y, "y_lengths": y_lens}
+    batch = {"x": x, "x_lengths": x_lens, "y": y, "y_lengths": y_lens}
+    if "spk" in items[0]:
+        batch["spk"] = np.stack([np.asarray(it["spk"]) for it in items])
+    if "durations" in items[0]:
+        dur = np.zeros((B, T_x), np.float32)
+        for i, it in enumerate(items):
+            dur[i, : x_lens[i]] = it["durations"]
+        batch["durations"] = dur
+    return batch
 
 
 class BucketBatcher:
@@ -109,6 +125,12 @@ class DataLoader:
     """Dataset + BucketBatcher + pad_batch. The dataset is any object with
     `__len__`, `__getitem__` -> {"x", "y"} and `lengths()`.
 
+    `language_upsample` draws each epoch's indices instead from
+    `LengthGroupedLanguageUpSampler` over `dataset.lang_sizes` (languages
+    with probability ~ size^factor, then length-grouped; ref train_v6.py,
+    upsample_factor 0.5, msml1h 0.9), cut into full batches of
+    `batch_size`.
+
     Upcoming batches are assembled on a background thread, `prefetch` at
     most ahead (a bounded queue), so the host's batching overlaps the
     card's steps."""
@@ -126,12 +148,19 @@ class DataLoader:
     ):
         if num_hosts > 1:
             raise NotImplementedError("multi-host batching is not ported yet: ROADMAP A13")
-        if language_upsample is not None:
-            raise NotImplementedError("language upsampling is not ported yet: ROADMAP A13")
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         self.dataset = dataset
-        self.batcher = BucketBatcher(dataset.lengths(), batch_size, shuffle=shuffle, seed=seed)
+        self.batch_size = batch_size
+        lengths = dataset.lengths()
+        self.batcher = BucketBatcher(lengths, batch_size, shuffle=shuffle, seed=seed)
+        self.lang_sampler = None
+        if language_upsample is not None:
+            if not getattr(dataset, "lang_sizes", None):
+                raise ValueError("language_upsample needs a dataset with lang_sizes")
+            self.lang_sampler = LengthGroupedLanguageUpSampler(
+                batch_size, lengths, dataset.lang_sizes, upsample_factor=language_upsample,
+                seed=seed)
         self.min_frames = min_frames
         self.prefetch = prefetch
 
@@ -140,6 +169,13 @@ class DataLoader:
 
     def _make_batch(self, idx):
         return pad_batch([self.dataset[int(i)] for i in idx], min_frames=self.min_frames)
+
+    def _index_batches(self):
+        if self.lang_sampler is None:
+            return self.batcher
+        order = np.fromiter(iter(self.lang_sampler), dtype=np.int64)
+        n = self.batch_size
+        return [order[i: i + n] for i in range(0, len(order) - n + 1, n)]
 
     def __iter__(self):
         import queue
@@ -151,7 +187,7 @@ class DataLoader:
 
         def producer():
             try:
-                for idx in self.batcher:
+                for idx in self._index_batches():
                     if stop.is_set():
                         return
                     q.put(self._make_batch(idx))

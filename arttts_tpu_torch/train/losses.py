@@ -1,12 +1,18 @@
-"""GradTTS training loss (port of `grad_tts_loss` and its helpers in
-`arttts_tpu/train/losses.py`).
+"""Training losses of the Grad-TTS family (port of
+`arttts_tpu/train/losses.py`: `grad_tts_loss`, `grad_ttartic_loss` and
+their helpers).
 
-The three parts: the duration loss against the alignment MAS finds, the
-Gaussian prior loss of the aligned encoder output, and the diffusion loss of
-the score network on a random fixed-size segment. MAS runs on the card on
-the detached log-prior (kernel K6, `ops/mas.py:maximum_path`) and its path
-carries no gradient. Layouts are the JAX package's: x (B, T_x) ids,
-y (B, T_y, n_feats), masks (B, T, 1).
+`grad_tts_loss` (GradTTS, ArtTTS, AttentionTTS) has three parts: the
+duration loss against the alignment MAS finds, the Gaussian prior loss of
+the aligned encoder output, and the diffusion loss of the score network on
+a random fixed-size segment. MAS runs on the card on the detached log-prior
+(kernel K6, `ops/mas.py:maximum_path`) and its path carries no gradient.
+`grad_ttartic_loss` (the multi-speaker GradTTArtic) takes its alignment
+from the forced-alignment durations instead (`ops/shape.py:generate_path`):
+no MAS, no duration loss. Both take the same arguments. Layouts are the
+JAX package's: x (B, T_x) ids or (B, T_x, C) traits, y (B, T_y, n_feats),
+masks (B, T, 1); spk (B,) ids or (B, E) pre-embeddings; durations
+(B, T_x).
 
 Every draw (dropout masks, segment offsets, diffusion time t, noise z) comes
 from the one `torch.Generator` the caller passes, in that order. `pinned`
@@ -27,7 +33,7 @@ from arttts_tpu_torch.models.diffusion_sde import (
     sample_t,
 )
 from arttts_tpu_torch.ops.mas import maximum_path
-from arttts_tpu_torch.ops.shape import duration_loss, sequence_mask
+from arttts_tpu_torch.ops.shape import duration_loss, generate_path, sequence_mask
 
 
 def mas_log_prior(mu_x, y, x_mask, y_mask):
@@ -72,30 +78,16 @@ def prior_loss_fn(y, mu_y, y_mask, n_feats: int):
     return loss / (torch.sum(y_mask) * n_feats)
 
 
-def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, y_lengths,
-                  out_size: Optional[int] = None, pinned=None):
-    """(total, {"dur_loss", "prior_loss", "diff_loss"}) of one batch.
-
-    `out_size` cuts a random segment of that many frames for the prior and
-    diffusion parts (None: the full sequences, as validation runs).
-    `pinned` is an optional (t, z, offsets) triple overriding the draws."""
+def _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
+                         out_size, pinned):
+    """The parts both losses share, after the alignment: the segment cut,
+    the aligned prior mu_y, and the diffusion and prior losses. Returns
+    (prior, diff)."""
     t_pin = z_pin = off_pin = None
     if pinned is not None:
         t_pin, z_pin, off_pin = pinned
     n_feats = model.config.n_feats
     dec = model.config.decoder
-
-    mu_x, logw, x_mask = model.encode(x, x_lengths, generator=generator)
-    y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
-
-    # MAS on the detached log-prior; the path carries no gradient
-    with torch.no_grad():
-        log_prior, attn_mask = mas_log_prior(mu_x.detach(), y, x_mask, y_mask)
-        attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
-
-    logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[:, :, None] * x_mask
-    dur = duration_loss(logw, logw_hat, x_lengths)
-
     if out_size is not None:
         y_seg, attn_seg, y_seg_mask = cut_segments(generator, y, attn, y_lengths, out_size,
                                                    offsets=off_pin)
@@ -109,18 +101,58 @@ def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, 
         t = t_pin
     xt, z = forward_diffusion(generator, y_seg, y_seg_mask, mu_y, t, dec.beta_min,
                               dec.beta_max, z=z_pin)
-    noise_est = model.estimate_noise(xt, y_seg_mask, mu_y, t)
+    noise_est = model.estimate_noise(xt, y_seg_mask, mu_y, t, spk)
     diff = diffusion_loss_from_estimate(noise_est, z, y_seg_mask, t, n_feats, dec.beta_min,
                                         dec.beta_max)
     prior = prior_loss_fn(y_seg, mu_y, y_seg_mask, n_feats)
+    return prior, diff
+
+
+def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, y_lengths,
+                  spk=None, durations=None, out_size: Optional[int] = None, pinned=None):
+    """(total, {"dur_loss", "prior_loss", "diff_loss"}) of one batch.
+
+    `spk` is a multi-speaker model's raw speaker input (None otherwise).
+    `durations` is not used (MAS finds the alignment); it keeps the
+    signature of `grad_ttartic_loss`. `out_size` cuts a random segment of
+    that many frames for the prior and diffusion parts (None: the full
+    sequences, as validation runs). `pinned` is an optional
+    (t, z, offsets) triple overriding the draws."""
+    mu_x, logw, x_mask = model.encode(x, x_lengths, spk, generator=generator)
+    y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
+
+    # MAS on the detached log-prior; the path carries no gradient
+    with torch.no_grad():
+        log_prior, attn_mask = mas_log_prior(mu_x.detach(), y, x_mask, y_mask)
+        attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
+
+    logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[:, :, None] * x_mask
+    dur = duration_loss(logw, logw_hat, x_lengths)
+    prior, diff = _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
+                                       out_size, pinned)
     total = dur + prior + diff
     return total, {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff}
 
 
+def grad_ttartic_loss(model, generator: Optional[torch.Generator], x, x_lengths, y,
+                      y_lengths, spk=None, durations=None, out_size: Optional[int] = None,
+                      pinned=None):
+    """(total, {"prior_loss", "diff_loss"}) of one batch of the aligned-input
+    multi-speaker model: the alignment is the 0/1 path of `durations`
+    (B, T_x) frame counts from the forced alignments (input channel 26), so
+    there is no MAS and no duration loss. Arguments as `grad_tts_loss`."""
+    if durations is None:
+        raise ValueError("grad_ttartic_loss needs aligned durations")
+    mu_x, _, x_mask = model.encode(x, x_lengths, spk, generator=generator)
+    y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
+    attn_mask = x_mask[:, :, 0:1] * y_mask[:, None, :, 0]
+    attn = generate_path(durations, attn_mask)
+    prior, diff = _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
+                                       out_size, pinned)
+    return prior + diff, {"prior_loss": prior, "diff_loss": diff}
+
+
 def loss_for_model(name: str):
-    """The loss of a model family."""
-    if name == "grad_ttartic":
-        raise NotImplementedError(
-            "grad_ttartic_loss (the multi-speaker GradTTArtic model) is not ported yet: "
-            "ROADMAP A8")
-    return grad_tts_loss
+    """The loss of a model family (`ModelConfig.name`), as the JAX
+    package's `loss_for_model` maps it."""
+    return grad_ttartic_loss if name == "grad_ttartic" else grad_tts_loss

@@ -1,22 +1,32 @@
 """One training step (port of `arttts_tpu/train/step.py`).
 
-The JAX package jits the whole step: encoder forward, MAS, segment cut,
-U-Net forward and backward, per-submodule clip, Adam. Here the same step
-runs eagerly: autograd differentiates the module path (`models/encoder.py`,
-`models/unet2d.py`), exactly the functions the JAX step differentiates,
-and MAS runs on kernel K6. No kernel of this path needs a backward: MAS is
-outside the gradient, and the serving kernels K1-K5 are not on it.
+The JAX package jits the whole step: encoder forward, alignment (MAS, or
+the durations' path for GradTTArtic), segment cut, U-Net forward and
+backward, per-submodule clip, Adam. Here the same step runs eagerly:
+autograd differentiates the module path (`models/encoder.py`,
+`models/unet2d.py`, `models/unet1d.py`), exactly the functions the JAX
+step differentiates, and MAS runs on kernel K6. No kernel of this path
+needs a backward: MAS is outside the gradient, and the serving kernels
+K1-K5 are not on it. The loss is the model family's
+(`train/losses.py:loss_for_model`); the batch's "spk" and "durations"
+reach it when present.
 
 The metrics stay on the device: nothing in a step waits for the card.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
 from arttts_tpu_torch.train.losses import grad_tts_loss
+
+# The reference clips only the encoder and decoder parameter groups; the
+# speaker modules (GradTTArtic's speaker encoding layer, the embedding table
+# of other multi-speaker models) are never clipped (the JAX package's
+# `_UNCLIPPED_SUBMODULES`: `spk_encoder`, `spk_table`).
+UNCLIPPED_SUBMODULES = ("spk_enc", "spk_emb")
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -28,8 +38,11 @@ def per_submodule_clip(model: torch.nn.Module, max_norm: float) -> None:
     """Clip the gradients of each top-level submodule (the port's `encoder`
     and `decoder`) to global norm `max_norm`, in place, with the scale
     min(1, max_norm / (norm + 1e-6)): the reference clips its encoder and
-    decoder separately, never with one global clip."""
-    for child in model.children():
+    decoder separately, never with one global clip, and leaves the speaker
+    modules (`UNCLIPPED_SUBMODULES`) unclipped."""
+    for name, child in model.named_children():
+        if name in UNCLIPPED_SUBMODULES:
+            continue
         grads = [p.grad for p in child.parameters() if p.grad is not None]
         if grads:
             scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
@@ -42,21 +55,28 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
+def _loss(loss_fn, model, generator, batch, out_size, pinned=None):
+    return loss_fn(model, generator, batch["x"], batch["x_lengths"], batch["y"],
+                   batch["y_lengths"], spk=batch.get("spk"), durations=batch.get("durations"),
+                   out_size=out_size, pinned=pinned)
+
+
 def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator], out_size: Optional[int],
-               grad_clip_norm: float = 1.0) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a batch of tensors on the model's device
-    ({"x", "x_lengths", "y", "y_lengths"}; with "pinned_t", "pinned_z",
-    "pinned_offsets" the loss's draws are those). Puts the model in training
-    mode. Returns the three loss parts, `total_loss` and `grad_norm` (of the
-    unclipped gradients), as device scalars."""
+               grad_clip_norm: float = 1.0,
+               loss_fn: Callable = grad_tts_loss) -> Dict[str, torch.Tensor]:
+    """One optimizer step of `loss_fn` on a batch of tensors on the model's
+    device ({"x", "x_lengths", "y", "y_lengths"[, "spk", "durations"]}; with
+    "pinned_t", "pinned_z", "pinned_offsets" the loss's draws are those).
+    Puts the model in training mode. Returns the loss parts, `total_loss`
+    and `grad_norm` (the norm of all gradients before the clip), as device
+    scalars."""
     model.train()
     pinned = None
     if "pinned_t" in batch:
         pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
     optimizer.zero_grad(set_to_none=True)
-    total, parts = grad_tts_loss(model, generator, batch["x"], batch["x_lengths"], batch["y"],
-                                 batch["y_lengths"], out_size=out_size, pinned=pinned)
+    total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
     total.backward()
     grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
     per_submodule_clip(model, grad_clip_norm)
@@ -68,15 +88,15 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def eval_step(model, batch: Dict[str, torch.Tensor],
-              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-    """Validation loss on the full sequences (no segment cut), the encoder
-    deterministic, no gradient. The model's mode is restored after."""
+def eval_step(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+              loss_fn: Callable = grad_tts_loss) -> Dict[str, torch.Tensor]:
+    """Validation loss of `loss_fn` on the full sequences (no segment cut),
+    the encoder deterministic, no gradient. The model's mode is restored
+    after."""
     was_training = model.training
     model.eval()
     try:
-        total, parts = grad_tts_loss(model, generator, batch["x"], batch["x_lengths"],
-                                     batch["y"], batch["y_lengths"], out_size=None)
+        total, parts = _loss(loss_fn, model, generator, batch, None)
     finally:
         model.train(was_training)
     metrics = dict(parts)

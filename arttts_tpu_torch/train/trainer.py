@@ -1,12 +1,19 @@
-"""Config-driven trainer (port of `arttts_tpu/train/trainer.py` for the
-GradTTS family): the object a training command line builds.
+"""Config-driven trainer (port of `arttts_tpu/train/trainer.py`): the
+object `cli/train.py` builds, for every preset. The preset selects the
+model family and, through `config.model.name`, its loss
+(`train/losses.py:loss_for_model`: MAS-aligned `grad_tts_loss` or the
+duration-aligned `grad_ttartic_loss`).
 
 The epoch loop stays on the host; each step runs on the card
-(`train/step.py`, MAS on kernel K6). Per epoch: scalar logging, periodic
-validation, synthesis samples (with a writer), early stopping, and
-`grad_{epoch}` / `grad_best` / `grad_final` checkpoints that include the
-optimizer state. Any object with `__len__`, `__getitem__` -> {"x", "y"}
-and `lengths()` serves as a dataset.
+(`train/step.py`, MAS on kernel K6). Batches carry "spk" and "durations"
+to the card when the dataset gives them; `language_upsample` draws a
+multilingual set's batches by language upsampling. Per epoch: scalar
+logging, periodic validation, synthesis samples of a fixed seeded choice
+of validation items with their DTW score (with a writer), early
+stopping, and `grad_{epoch}` / `grad_best` / `grad_final` checkpoints that
+include the optimizer state. Any object with `__len__`,
+`__getitem__` -> {"x", "y"[, "spk", "durations"]} and `lengths()` serves
+as a dataset.
 
 With `steps_per_dispatch > 1` the JAX package scans K steps in one launch;
 its own tests hold that the same trajectory as K sequential steps, and here
@@ -28,6 +35,7 @@ from arttts_tpu_torch.core.checkpoint import latest_checkpoint, load_checkpoint,
 from arttts_tpu_torch.core.config import ExperimentConfig
 from arttts_tpu_torch.core.device import resolve
 from arttts_tpu_torch.data.batching import DataLoader
+from arttts_tpu_torch.eval.metrics import normalized_dtw_score
 from arttts_tpu_torch.models.tts import build_model
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
 from arttts_tpu_torch.train.losses import loss_for_model
@@ -46,12 +54,14 @@ class Trainer:
         log_dir: Optional[str] = None,
         tb_writer=None,
         device="cuda",
+        language_upsample: Optional[float] = None,
     ):
         """`tb_writer`: a TensorBoard-style writer (`add_scalar`,
         `add_image`), or None for no logging there. The model is built from
-        `config.train.random_seed` on `device`."""
-        loss_for_model(config.model.name)  # raises for a family not ported yet
+        `config.train.random_seed` on `device`. `language_upsample`: the
+        training loader's language upsampling factor (None: off)."""
         self.config = config
+        self.loss_fn = loss_for_model(config.model.name)
         self.device = resolve(device)
         t = config.train
         self.model = build_model(config.model, device=self.device, seed=t.random_seed).train()
@@ -60,7 +70,8 @@ class Trainer:
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self.tb = tb_writer
         self.train_loader = DataLoader(train_dataset, batch_size=t.batch_size,
-                                       seed=t.random_seed, min_frames=t.out_size)
+                                       seed=t.random_seed, min_frames=t.out_size,
+                                       language_upsample=language_upsample)
         self.valid_loader = (
             DataLoader(valid_dataset, batch_size=t.batch_size, shuffle=False,
                        min_frames=t.out_size)
@@ -105,7 +116,7 @@ class Trainer:
         agg: Dict[str, list] = {}
         for batch in self.train_loader:
             metrics = train_step(self.model, self.optimizer, self._on_device(batch),
-                                 self.generator, t.out_size, t.grad_clip_norm)
+                                 self.generator, t.out_size, t.grad_clip_norm, self.loss_fn)
             for k, v in metrics.items():
                 agg.setdefault(k, []).append(v)
         # one wait for the card per epoch
@@ -122,7 +133,8 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(0)
         agg: Dict[str, list] = {}
         for batch in self.valid_loader:
-            for k, v in eval_step(self.model, self._on_device(batch), generator).items():
+            for k, v in eval_step(self.model, self._on_device(batch), generator,
+                                  self.loss_fn).items():
                 agg.setdefault(k, []).append(v)
         out = {k: float(torch.stack(vs).mean()) for k, vs in agg.items()}
         if self.tb:
@@ -131,29 +143,40 @@ class Trainer:
         return out
 
     def synthesize_samples(self, epoch: int, n_timesteps: int = 50) -> None:
-        """Synthesise the first `test_size` validation items and log the
-        generated mel and the alignment as images scaled to [0, 1] (the JAX
-        trainer's plots and DTW score wait for ROADMAP A11)."""
+        """Synthesise `test_size` validation items, the seeded choice
+        `valid_dataset.sample_test_batch` makes (as the JAX trainer), each
+        with its speaker input and, for GradTTArtic, its aligned durations
+        rounded up; log the generated features and the alignment as images
+        scaled to [0, 1] (the JAX trainer's matplotlib plots are ROADMAP
+        A11) and `validation/dtw_{i}`, the DTW score against the target."""
         if self.valid_dataset is None or self.tb is None:
             return
         from arttts_tpu_torch.infer.sampler import frame_bucket, synthesize
 
-        n = min(self.config.train.test_size, len(self.valid_dataset))
+        items = self.valid_dataset.sample_test_batch(
+            min(self.config.train.test_size, len(self.valid_dataset)))
+        aligned = self.config.model.name == "grad_ttartic"
         self.model.eval()
         try:
-            for i in range(n):
-                item = self.valid_dataset[i]
+            for i, item in enumerate(items):
                 x = np.asarray(item["x"])[None]
+                spk = np.asarray(item["spk"])[None] if "spk" in item else None
+                durations = (np.ceil(item["durations"])[None]
+                             if aligned and "durations" in item else None)
                 max_frames = frame_bucket(
                     fix_len_compatibility(max(64, 2 * np.asarray(item["y"]).shape[0])))
                 _, dec, attn, y_len = synthesize(
                     self.model, self.generator, x, np.array([x.shape[1]], np.int32),
-                    n_timesteps=n_timesteps, max_frames=int(max_frames), device=self.device)
+                    n_timesteps=n_timesteps, max_frames=int(max_frames),
+                    x_durations=durations, device=self.device, spk=spk)
                 L = int(y_len[0])
-                for name, img in (("generated_dec", dec[0, :L].T), ("alignment", attn[0, :, :L])):
+                dec = dec[0, :L].float().cpu()
+                for name, img in (("generated_dec", dec.T), ("alignment", attn[0, :, :L])):
                     img = img.float().cpu()
                     img = (img - img.min()) / (img.max() - img.min() + 1e-8)
                     self.tb.add_image(f"image_{i}/{name}", img[None].numpy(), epoch)
+                score, _, _ = normalized_dtw_score(dec.numpy(), np.asarray(item["y"]))
+                self.tb.add_scalar(f"validation/dtw_{i}", score, epoch)
         finally:
             self.model.train()
 

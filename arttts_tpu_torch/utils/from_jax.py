@@ -258,11 +258,14 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module, learning_rate: float)
     adam(learning_rate))` of `arttts_tpu/train/step.py:make_optimizer`) ->
     a `torch.optim.Adam` state dict for `model`'s parameters (the port's
     `train/step.py:make_optimizer`): step = the optax count, exp_avg = mu,
-    exp_avg_sq = nu. Both packages then take the same next step."""
+    exp_avg_sq = nu. Both packages then take the same next step. A
+    GradTTArtic state (its moments hold `spk_encoder`) maps through
+    `grad_ttartic_state_dict`, any other through `grad_tts_state_dict`."""
     adam = opt_state[1][0]  # chain(clip: EmptyState, adam: (ScaleByAdamState, EmptyState))
     if not all(hasattr(adam, k) for k in ("count", "mu", "nu")):
         raise ValueError(f"want optax's Adam state at opt_state[1][0], got {type(adam)}")
-    mu, nu = grad_tts_state_dict(adam.mu), grad_tts_state_dict(adam.nu)
+    to_sd = grad_ttartic_state_dict if "spk_encoder" in adam.mu else grad_tts_state_dict
+    mu, nu = to_sd(adam.mu), to_sd(adam.nu)
     step = float(np.asarray(adam.count))
     template = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
                                 eps=1e-8).state_dict()

@@ -91,7 +91,24 @@ fatal on failure (exit code 1, no result line):
    and preblock decoders, K4/K5 in every vocode run); the B=4 artifacts
    are held against per-sentence ones with masked statistics, v1 (three
    solvers) and v5 on the card against the same CLI runs on the CPU, and
-   v3, v2 at B=4 and v5 are profiled for device time an evaluation.
+   v3, v2 at B=4 and v5 are profiled for device time an evaluation;
+11. train_presets: one epoch each of v1 (2D, 16 rows), v3 (2D, 80 rows),
+   v5 (1D), v6 and msml1h (GradTTArtic; msml1h over two languages with its
+   preset's language upsampling) at full width from seed 0, through
+   `cli.train.main` in process at --batch-size 16, on seeded corpora it
+   writes under `build/chip_smoke_train_presets/` (removed after): 48
+   training and 16 validation phnm3 utterances of 1.5-4 s, and 48
+   VoxCommunis ones, validated on the same layout as the JAX CLI does.
+   Each run is resumed from its `grad_1` (the weights equal the saved
+   ones, Adam's steps restored); v1 and v6 log through a recording writer,
+   so the epoch's `synthesize_samples` runs: K1-K3 held to 13 / 2 / 2 an
+   evaluation x 50 x test_size, its DTW scalars finite. K6 must launch
+   once per training and validation batch of v1, v3, v5 and never for the
+   v6 family; no plain version on the card; finite losses, every
+   parameter tensor moved, the checkpoints written; median step wall and
+   peak memory per preset, and one more step of each under the profiler
+   (device time, launches, idle share). Then one `train_step` of v1 and of
+   v6 (B=2, pinned draws, dropout off) on the card against the CPU, as 9b.
 
 Prints JSON lines; the `{"kernels": [...]}` line and the card line come
 before the last, which is `{"ok": true, "device": {...}}`.
@@ -457,6 +474,351 @@ def cli_phase(card, dev, counters, plains, kernel_time, families):
     shutil.rmtree(root, ignore_errors=True)
     if failures:
         fail("cli: " + "; ".join(failures))
+    return total
+
+
+TRAIN_PRESETS = ("v1", "v3", "v5", "v6", "msml1h")
+VOX_PHONES = ["a", "t", "t͡ʃ", "aɪ", "kʰ", "ɛ", "ŋ", "ʃ", "i", "o", "u", "m", "n", "s", "SIL"]
+
+
+def write_train_corpora(root, n_train=48, n_valid=16):
+    """Seeded training corpora under `root` in the JAX package's layouts,
+    utterances of 1.5-4 s: a phnm3 set (`phnm/`: alignments of 60-160 ms
+    phones, SPARC tracks under `encoded_audio_en/emasrc`, 22.05 kHz wavs for
+    the mel targets) with a training and a validation filelist; and two
+    VoxCommunis layouts (a manifest, a 100 Hz alignment, SPARC tracks and
+    1024-d speaker pre-embeddings a language): `vox/` of `n_train`
+    Italian utterances (v6's language) and `vox_ml/` of `n_train // 2`
+    each in Italian and French (msml1h's one file a language)."""
+    import numpy as np
+
+    from arttts_tpu_torch.audio.io import save_wav
+    from arttts_tpu_torch.text.phnms import build_phnm3
+
+    r = np.random.default_rng(21)
+    phnm = root / "phnm"
+    for d in ("wavs", "phnm3", "encoded_audio_en/emasrc"):
+        (phnm / d).mkdir(parents=True)
+    lines = []
+    for i in range(n_train + n_valid):
+        dur = float(r.uniform(1.5, 4.0))
+        cuts = np.cumsum(r.uniform(0.06, 0.16, 80))
+        bounds = np.concatenate([[0.0], cuts[cuts < dur - 0.06], [dur]])
+        stem = f"utt{i:03d}"
+        np.save(phnm / "phnm3" / f"{stem}_phnm3.npy",
+                build_phnm3(list(r.choice(CLI_PHONES, len(bounds) - 1)), bounds))
+        art = r.standard_normal((int(dur * 50) + 1, 14)).astype(np.float32)
+        art[:, 12] = 120 + 25 * art[:, 12]  # pitch in Hz
+        np.save(phnm / "encoded_audio_en" / "emasrc" / f"{stem}.npy", art)
+        t = np.arange(int(22050 * dur)) / 22050.0
+        wav = 0.2 * np.sin(2 * np.pi * (110 + i) * t) + 0.02 * r.standard_normal(t.size)
+        save_wav(phnm / "wavs" / f"{stem}.wav", wav.astype(np.float32), 22050)
+        lines.append(f"DUMMY/wavs/{stem}.wav|DUMMY/phnm3/{stem}_phnm3.npy")
+    (phnm / "train.txt").write_text("\n".join(lines[:n_train]))
+    (phnm / "valid.txt").write_text("\n".join(lines[n_train:]))
+
+    def vox(base, langs, n):
+        (base / "manifests").mkdir(parents=True)
+        (base / "alignments").mkdir(parents=True)
+        for lang in langs:
+            enc = base / "encoded_audio_multi" / lang
+            (enc / "emasrc").mkdir(parents=True)
+            (enc / "spk_preemb").mkdir(parents=True)
+            rows, aligns = [str(base / "wavs")], []
+            for i in range(n):
+                fid = f"cv_{lang}_{lang}_{i:04d}"
+                seq, left = [], 2 * int(r.integers(75, 201))  # 100 Hz frames of 1.5-4 s
+                while left:
+                    k = min(left, 2 * int(r.integers(2, 9)))
+                    seq += [str(r.choice(VOX_PHONES))] * k
+                    left -= k
+                art = r.standard_normal((len(seq) // 2, 14)).astype(np.float32)
+                art[:, 12] = 120 + 25 * art[:, 12]
+                art[:, 13] = np.abs(art[:, 13]) + 0.1  # loudness > 0
+                np.save(enc / "emasrc" / f"{fid}.npy", art)
+                np.save(enc / "spk_preemb" / f"{fid}.npy",
+                        r.standard_normal(1024).astype(np.float32))
+                rows.append(f"{lang}/{fid}.wav\t{len(seq) * 160}")  # 16 kHz samples
+                aligns.append(f"{fid}\t{' '.join(seq)}")
+            (base / "manifests" / f"{lang}.tsv").write_text("\n".join(rows) + "\n")
+            (base / "alignments" / f"{lang}.align").write_text("\n".join(aligns) + "\n")
+
+    vox(root / "vox", ["it"], n_train)
+    vox(root / "vox_ml", ["it", "fr"], n_train // 2)
+
+
+class Recorder:
+    """A TensorBoard-style writer that keeps the trainer's scalars and the
+    shapes of its images (the port's trainer logs through any such object)."""
+
+    def __init__(self):
+        self.scalars, self.images = {}, {}
+
+    def add_scalar(self, tag, value, step):
+        self.scalars[tag] = float(value)
+
+    def add_image(self, tag, img, step):
+        self.images[tag] = list(img.shape)
+
+    def close(self):
+        pass
+
+
+def _epoch_losses(log_file):
+    """The loss dict of the last line of a trainer's `train.log` or
+    `val.log` (`{epoch}\\t{dict}`)."""
+    import ast
+
+    return ast.literal_eval(log_file.read_text().strip().splitlines()[-1].split("\t", 1)[1])
+
+
+def train_presets_phase(card, dev, counters, plains, K6):
+    """Phase 11 (`train_presets`): one epoch each of v1 (2D, 16 rows), v3
+    (2D, 80 rows), v5 (1D), v6 and msml1h (GradTTArtic; msml1h over two
+    languages with its preset's language upsampling) at full width from
+    seed 0, through `cli.train.main` in process at --batch-size 16, each
+    resumed from its `grad_1`; v1 and v6 log through a recording writer,
+    so the epoch's `synthesize_samples` runs on the kernels. Then one
+    `train_step` of v1 and of v6 on the card against the same step on the
+    CPU. Returns the launches of each kernel over the phase's runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arttts_tpu_torch.cli import train as cli_train
+    from arttts_tpu_torch.core.config import get_preset, register_preset
+    from arttts_tpu_torch.models.tts import build_model
+    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
+    from arttts_tpu_torch.train import trainer as trainer_mod
+    from arttts_tpu_torch.train.losses import grad_ttartic_loss, grad_tts_loss, mas_log_prior
+    from arttts_tpu_torch.train.step import make_optimizer, train_step
+
+    phase_t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_train_presets"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_train_corpora(root)
+    corpus_s = time.perf_counter() - t0
+    all_counters = counters + [K6.maximum_path]
+    all_plains = plains + [K6.maximum_path_plain]
+    total = dict.fromkeys((f.__name__ for f in all_counters), 0)
+    step_walls = []
+
+    def timed_step(*a, **k):  # host clock around a step that ends in a sync
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(*a, **k)
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t)
+        return m
+
+    runs, failures = [], []
+    real_writer = cli_train.tensorboard_writer
+    trainer_mod.train_step = timed_step
+    try:
+        for preset in TRAIN_PRESETS:
+            base = get_preset(preset)
+            smoke_train = dataclasses.replace(base.train, save_every=1, val_every=1,
+                                              random_seed=0)
+            register_preset(dataclasses.replace(base, name=f"{preset}_smoke", train=smoke_train))
+            log_dir = root / "logs" / preset
+            if base.data.dataset == "ms_phnm_artic":
+                vox = root / ("vox_ml" if base.data.separate_files else "vox")
+                # the JAX CLI builds validation from the same layout
+                data = ["--data-root", str(vox), "--manifest", str(vox / "manifests"),
+                        "--alignment", str(vox / "alignments"), "--valid-filelist", "layout"]
+            else:
+                data = ["--data-root", str(root / "phnm"), "--train-filelist",
+                        str(root / "phnm" / "train.txt"), "--valid-filelist",
+                        str(root / "phnm" / "valid.txt")]
+            args = ["--preset", f"{preset}_smoke", *data, "--log-dir", str(log_dir),
+                    "--batch-size", "16"]
+            rec = Recorder() if preset in ("v1", "v6") else None
+            cli_train.tensorboard_writer = lambda _dir, rec=rec: rec
+            for f in all_counters + all_plains:
+                setattr(f, "launches" if f in all_counters else "cuda_calls", 0)
+            GradLogPEstimator2d.cuda_calls = 0
+            step_walls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            trainer = cli_train.main(args + ["--epochs", "1"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated()
+            launches = {f.__name__: f.launches for f in all_counters}
+            plain = {f.__name__: f.cuda_calls for f in all_plains}
+            module_forwards = GradLogPEstimator2d.cuda_calls
+            for k, v in launches.items():
+                total[k] += v
+            walls = list(step_walls)
+            cfg = trainer.config
+            n_steps, n_val = len(trainer.train_loader), len(trainer.valid_loader)
+            mas = cfg.model.name != "grad_ttartic"
+            n_synth = min(cfg.train.test_size, len(trainer.valid_dataset)) if rec else 0
+            evals = N_STEPS * n_synth
+            want = {"resblock2d": 13 * evals, "downsample2d": 2 * evals,
+                    "conv_transpose2d": 2 * evals, "mrf_stage": 0, "upsample1d": 0,
+                    "maximum_path": (n_steps + n_val) * mas}
+            state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            seeded = build_model(cfg.model, device=dev, seed=0).state_dict()
+            still = [k for k, v in state.items() if torch.equal(seeded[k], v)]
+            n_tensors = len(state)
+            del seeded
+            files = sorted(p.name for p in log_dir.iterdir() if p.is_dir())
+            train_losses = _epoch_losses(log_dir / "train.log")
+            val_losses = _epoch_losses(log_dir / "val.log")
+            lang_sampler = trainer.train_loader.lang_sampler
+            # where a step's time goes: one more step (the epoch's first, longest
+            # batch) under the profiler, after the counts were read
+            batch = trainer._on_device(next(iter(trainer.train_loader)))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                train_step(trainer.model, trainer.optimizer, batch, trainer.generator,
+                           cfg.train.out_size, cfg.train.grad_clip_norm, trainer.loss_fn)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t) * 1e3
+            kern = [(a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
+                    if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
+                    and not getattr(a, "is_user_annotation", False)]
+            busy_ms = sum(ms for ms, _ in kern)
+            del trainer, batch, prof
+            resumed = cli_train.main(args + ["--epochs", "1", "--resume",
+                                             str(log_dir / "grad_1")])
+            restored = resumed.model.state_dict()
+            same = all(torch.equal(v, restored[k]) for k, v in state.items())
+            adam_steps = sorted({float(s["step"]) for s in resumed.optimizer.state.values()})
+            resume_epoch = resumed.start_epoch
+            del resumed, restored, state
+            dtw = {k: v for k, v in (rec.scalars.items() if rec else ()) if "dtw" in k}
+            walls_ms = sorted(1e3 * w for w in walls[1:])
+            runs.append(dict(
+                preset=preset, model=cfg.model.name, decoder=cfg.model.decoder.kind,
+                rows=cfg.model.n_feats, batch_size=cfg.train.batch_size,
+                out_size=cfg.train.out_size,
+                language_upsample=(cfg.data.language_upsample if lang_sampler else None),
+                language_probas=(lang_sampler.probas.tolist() if lang_sampler else None),
+                steps=n_steps, validation_batches=n_val, cli_wall_s=cli_s,
+                step_wall_ms=[1e3 * w for w in walls],
+                median_step_ms_after_first=walls_ms[len(walls_ms) // 2] if walls_ms else None,
+                max_memory_allocated_bytes=peak, train_losses=train_losses,
+                val_losses=val_losses, launches=launches, expected_launches=want,
+                plain_calls_on_card=plain, module_path_forwards_on_card=module_forwards,
+                tensors_not_moved=still, n_tensors=n_tensors, checkpoints=files,
+                resume_epoch=resume_epoch,
+                resume_adam_steps=adam_steps, resume_weights_equal=same,
+                synthesized=n_synth, dtw=dtw, images=len(rec.images) if rec else 0,
+                step_profile=dict(wall_ms_under_profiler=prof_wall_ms, device_kernel_ms=busy_ms,
+                                  kernel_launches=sum(c for _, c in kern),
+                                  idle_share_under_profiler=1 - busy_ms / prof_wall_ms,
+                                  idle_share_of_median_step=(
+                                      1 - busy_ms / walls_ms[len(walls_ms) // 2]
+                                      if walls_ms else None))))
+            finite = all(math.isfinite(v)
+                         for v in [*train_losses.values(), *val_losses.values()])
+            if launches != want or any(plain.values()):
+                failures.append(f"{preset}: launches {launches}, expected {want}; plain {plain}")
+            if n_steps != 3 or n_val != (3 if cfg.data.dataset == "ms_phnm_artic" else 1):
+                failures.append(f"{preset}: {n_steps} steps, {n_val} validation batches")
+            if not finite or still:
+                failures.append(f"{preset}: losses {train_losses} {val_losses}, "
+                                f"tensors not moved {still}")
+            if not {"grad_1", "grad_best", "grad_final"} <= set(files):
+                failures.append(f"{preset}: checkpoints {files}")
+            if resume_epoch != 2 or adam_steps != [float(n_steps)] or not same:
+                failures.append(f"{preset}: resumed at epoch {resume_epoch}, Adam steps "
+                                f"{adam_steps}, weights equal {same}")
+            if rec and (len(dtw) != n_synth or not all(math.isfinite(v) for v in dtw.values())):
+                failures.append(f"{preset}: DTW scalars {dtw}")
+            if (preset == "msml1h") != (lang_sampler is not None):
+                failures.append(f"{preset}: language sampler {lang_sampler}")
+            torch.cuda.empty_cache()
+    finally:
+        trainer_mod.train_step = train_step
+        cli_train.tensorboard_writer = real_writer
+
+    # one train_step of v1 and of v6 on the card against the same step on the
+    # CPU: B=2, the encoder's dropout off, pinned draws (t, z, offsets)
+    step_checks = {}
+    r = np.random.default_rng(8)
+    for preset in ("v1", "v6"):
+        base = get_preset(preset)
+        m_cfg = dataclasses.replace(base.model, encoder=dataclasses.replace(
+            base.model.encoder, dropout=0.0, prenet_dropout=0.0))
+        out_size, F_ = base.train.out_size, m_cfg.n_feats
+        x_l, y_l = np.array([48, 37], np.int32), np.array([192, 150], np.int32)
+        n_in = m_cfg.encoder.n_input_feats
+        xb = r.integers(-1, 2, (2, 48, n_in)).astype(np.float32)
+        yb = r.standard_normal((2, 192, F_)).astype(np.float32)
+        if preset == "v6":  # the last channel: aligned durations of 2-4 frames
+            xb[..., -1] = r.integers(2, 5, (2, 48))
+        for i in range(2):
+            xb[i, x_l[i]:] = 0
+            yb[i, y_l[i]:] = 0
+        batch_np = dict(x=xb, x_lengths=x_l, y=yb, y_lengths=y_l,
+                        pinned_t=r.uniform(0.05, 0.95, 2).astype(np.float32),
+                        pinned_z=r.standard_normal((2, out_size, F_)).astype(np.float32),
+                        pinned_offsets=(r.random(2) * (y_l - out_size)).astype(np.int32))
+        if preset == "v6":
+            batch_np.update(spk=r.standard_normal((2, 1024)).astype(np.float32),
+                            durations=xb[..., -1].copy())
+        loss_fn = grad_ttartic_loss if preset == "v6" else grad_tts_loss
+        side = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = build_model(m_cfg, device=d, seed=0)
+            est_d = m.decoder.estimator
+            with torch.no_grad():
+                for k, site in enumerate([lv[2] for lv in est_d.downs] + [est_d.mid_attn]
+                                         + [u[2] for u in est_d.ups]):
+                    site.fn.g.fill_((0.03 + 0.01 * k) * (-1) ** k)
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
+            path = None
+            if preset == "v1":  # the MAS path the step aligns by
+                with torch.no_grad():
+                    mu_x, _, x_mask = m.encode(b["x"], b["x_lengths"])
+                    y_mask = (torch.arange(192, device=d)[None]
+                              < b["y_lengths"][:, None]).float()
+                    lp, am = mas_log_prior(mu_x, b["y"], x_mask, y_mask[:, :, None])
+                    path = K6.maximum_path(lp, am).cpu()
+            metrics = train_step(m, make_optimizer(m, base.train.learning_rate), b, None,
+                                 out_size, base.train.grad_clip_norm, loss_fn)
+            side[name] = dict(path=path, metrics={k: float(v) for k, v in metrics.items()},
+                              grads={n: p.grad.cpu() for n, p in m.named_parameters()})
+            del m
+        gpu, cpu = side["card"], side["cpu"]
+        paths_equal = gpu["path"] is None or torch.equal(gpu["path"], cpu["path"])
+        loss_rel = {k: abs(gpu["metrics"][k] - cpu["metrics"][k])
+                    / max(abs(cpu["metrics"][k]), 1e-30) for k in cpu["metrics"]}
+        grad_worst, grad_name = 0.0, ""
+        for n, gc in cpu["grads"].items():
+            share = ((gpu["grads"][n] - gc).abs().max().item()
+                     / (1e-3 * gc.abs().max().item() + 1e-7))
+            if share > grad_worst:
+                grad_worst, grad_name = share, n
+        step_checks[preset] = dict(
+            B=2, T_x=48, T_y=192, out_size=out_size, mas_paths_equal=paths_equal,
+            metrics_card=gpu["metrics"], metrics_cpu=cpu["metrics"], metrics_rel_diff=loss_rel,
+            grad_tolerance_share_worst=grad_worst, grad_worst_tensor=grad_name,
+            tol="losses rtol 1e-4; grads 1e-3 * max|g_cpu| + 1e-7 per tensor",
+            ok=paths_equal and max(loss_rel.values()) <= 1e-4 and grad_worst <= 1.0)
+        if not step_checks[preset]["ok"]:
+            failures.append(f"card vs CPU step ({preset}): {step_checks[preset]}")
+
+    emit({"train_presets": {"card": card, "corpus_s": corpus_s,
+                            "corpora": "48 training and 16 validation utterances of 1.5-4 s "
+                                       "(phnm3); 48 VoxCommunis utterances (v6: it; msml1h: "
+                                       "24 it + 24 fr), validation from the same layout",
+                            "entry": "cli.train.main, in process, then --resume grad_1",
+                            "runs": runs, "card_vs_cpu_train_step": step_checks,
+                            "launches": total, "phase_s": time.perf_counter() - phase_t0}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("train_presets: " + "; ".join(failures))
     return total
 
 
@@ -1576,6 +1938,9 @@ def main():
     # ---- 10. cli: every single-speaker preset through the port's CLIs --------
     cli_launches = cli_phase(card, dev, counters, plains, kernel_time, families)
 
+    # ---- 11. train_presets: v1, v3, v5, v6, msml1h through cli.train ----------
+    train_presets_launches = train_presets_phase(card, dev, counters, plains, K6)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -1598,7 +1963,8 @@ def main():
     }
     kernels = []
     launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name],
-                               "cli": cli_launches[name]} for name in meta}
+                               "cli": cli_launches[name],
+                               "train_presets": train_presets_launches[name]} for name in meta}
     for name, (src, replaces, wrappers) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]
@@ -1639,7 +2005,9 @@ def main():
         "name": "maximum_path", "route": "cuda", "source": "arttts_tpu_torch/csrc/mas.cu",
         "replaces": "arttts_tpu/ops/mas_pallas.py:41",
         "tpu_wrappers": ["mas_pallas :180 (_mas_kernel :41, pallas_call :109)"],
-        "launches": train_launches["maximum_path"],
+        "launches": train_launches["maximum_path"] + train_presets_launches["maximum_path"],
+        "launches_by_path": {"training (v2)": train_launches["maximum_path"],
+                             "train_presets": train_presets_launches["maximum_path"]},
         "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
         "exact": all(c["exact_vs_plain"] and c["cells_off_oracle"] == 0 for c in mas_cases),
         "tolerance": "bit for bit against the plain version and the NumPy oracle",

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "data.ms_datasets", "audio.io", "infer.pipeline", "text.cleaners",
                 "text.numbers", "text.cmudict", "text.sequence", "text.converters",
                 "text.phnms", "data.filelist", "audio.mel", "data.datasets", "core.paths",
-                "core.runtime", "models.unet1d", "cli.synthesize", "cli.vocode"):
+                "core.runtime", "models.unet1d", "cli.synthesize", "cli.vocode", "cli.train",
+                "voxcommunis.sampler", "eval.metrics"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -62,7 +63,8 @@ def test_port_sources_name_no_jax_import():
                 "text/cleaners.py", "text/numbers.py", "text/cmudict.py", "text/sequence.py",
                 "text/converters.py", "text/phnms.py", "data/filelist.py", "audio/mel.py",
                 "data/datasets.py", "core/paths.py", "core/runtime.py", "models/unet1d.py",
-                "cli/synthesize.py", "cli/vocode.py"):
+                "cli/synthesize.py", "cli/vocode.py", "cli/train.py", "voxcommunis/sampler.py",
+                "eval/__init__.py", "eval/metrics.py"):
         assert f"arttts_tpu_torch/{new}" in names, new
     # no read of the JAX package's data files either (its copies live in the port)
     from arttts_tpu_torch.core import paths
@@ -320,3 +322,11 @@ def test_artic_entries_need_the_card_by_default(monkeypatch, tmp_path):
             vocode.main(["--mode", mode, "--torch-ckpt", str(tmp_path / "g.pt"), "--pred-dir",
                          str(tmp_path), "--save-dir", str(tmp_path / "cli_w")])
     assert not (tmp_path / "cli_a").exists() and not (tmp_path / "cli_w").exists()
+
+    # the training CLI (no --device: the card), before any data is read
+    from arttts_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--preset", "v1", "--train-filelist", str(tmp_path / "list.txt"),
+                    "--log-dir", str(tmp_path / "cli_t")])
+    assert not (tmp_path / "cli_t").exists()

@@ -434,7 +434,20 @@ def test_trainer_fit_resume_and_eval(tmp_path):
     assert steps == {float(len(trainer3.train_loader))}
 
 
-def test_unported_loss_family_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        plosses.loss_for_model("grad_ttartic")
-    assert plosses.loss_for_model("grad_tts") is plosses.grad_tts_loss
+def test_loss_for_model_maps_each_family_as_jax():
+    """Every preset's model family takes the loss the JAX package gives it:
+    `grad_ttartic_loss` for GradTTArtic (v6, v6_zhCN, msml1h),
+    `grad_tts_loss` for the rest."""
+    from arttts_tpu.core import config as jconfig
+
+    jconfig.get_preset("v1")  # builds the JAX package's preset table
+    names = set()
+    for preset, cfg in jconfig.PRESETS.items():
+        assert pconfig.get_preset(preset).model.name == cfg.model.name, preset
+        names.add(cfg.model.name)
+    assert {"grad_tts", "art_tts", "attention_tts", "attention_tts_preblock",
+            "grad_ttartic"} <= names
+    for name in names:
+        want = jlosses.loss_for_model(name).__name__
+        assert plosses.loss_for_model(name) is getattr(plosses, want), name
+    assert plosses.loss_for_model("grad_ttartic") is plosses.grad_ttartic_loss
