@@ -58,6 +58,16 @@
 // 7. Halo: the window's pitch is sized for conv1 halos (k - 1) * d of up to
 //    kMaxHalo frames (d <= 6 at k = 11; the vocoders use 1, 3, 5), so each
 //    kernel has one shared-memory size; the wrapper refuses larger ones.
+// bf16 mode (`mrf_round_bf16`; the JAX kernel's opt-in `bf16`,
+// mrf_pallas.py:441): the weights and each leaky-ReLU'd input of a conv are
+// rounded to bf16 (to nearest, ties to even: `cvt.rn`, not the truncation
+// of the split above) as the fragments are built from the same float32
+// staging, and each pair of taps is one `mma.sync.m16n8k16` bf16 step with
+// float32 accumulation (bf16_mma.cuh); k = 3, 7, 11 leave the last pair
+// padded with zeros. Biases, FiLM, the residual and the branch sum stay
+// float32. The kernel is templated on the mode: the float32 instantiation
+// is the code above.
+#include "bf16_mma.cuh"
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -69,6 +79,8 @@ using arttts::cp_async4;
 using arttts::cp_async_commit;
 using arttts::cp_async_wait;
 using arttts::mma3;
+using arttts::mma_bf16;
+using arttts::pack_bf16;
 using arttts::set_smem;
 
 constexpr float kSlope = 0.1f;
@@ -116,7 +128,7 @@ struct RoundArgs {
 
 // Grid: (ceil(T / kTB), B). Block x writes output frames [g0, g0 + kTB) of
 // utterance blockIdx.y.
-template <int C, int K>
+template <int C, int K, bool BF16>
 __global__ void __launch_bounds__(Tile<C, K>::kThreads, Tile<C, K>::kMinBlocks)
 mrf_round_kernel(const RoundArgs a) {
   using Tl = Tile<C, K>;
@@ -215,6 +227,35 @@ mrf_round_kernel(const RoundArgs a) {
     const int step = c < NCH ? dil : 1;
     const float* Aw = Aw0 + (c % kStages) * Tl::kAStage;
     const float* Bw = Bw0 + (c % NCH) * 8 * TP;
+    if constexpr (BF16) {
+      // tap pairs (0, 1), (2, 3), ...; k is odd, so the last pair is
+      // (k - 1, pad): `two` false there
+#pragma unroll 1
+      for (int tap = 0; tap < K; tap += 2) {
+        const bool two = tap + 1 < K;
+        uint32_t af[2][4], bf[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // rows g, g+8 x channels t, t+4
+            const float* p = Aw + 16 * mt * AP + (r & 1) * 8 * AP + (r >> 1) * 4 * K + tap;
+            af[mt][r] = pack_bf16(p[0], two ? p[1] : 0.f);
+          }
+        }
+        const float* q0 = Bw + tap * step;
+        const float* q1 = two ? q0 + step : q0;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          bf[nt][0] = pack_bf16(q0[8 * nt], two ? q1[8 * nt] : 0.f);
+          bf[nt][1] = pack_bf16(q0[4 * TP + 8 * nt], two ? q1[4 * TP + 8 * nt] : 0.f);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+      }
+      continue;
+    }
 #pragma unroll 1
     for (int tap = 0; tap < K; ++tap) {
       uint32_t ah[2][4], al[2][4], bh[NT][2], bl[NT][2];
@@ -283,12 +324,12 @@ mrf_round_kernel(const RoundArgs a) {
   }
 }
 
-template <int C, int K>
+template <int C, int K, bool BF16>
 int launch(const RoundArgs& a, cudaStream_t stream) {
   using Tl = Tile<C, K>;
   if (a.dil < 1 || (K - 1) * a.dil > kMaxHalo || a.B < 1 || a.T < 1)
     return (int)cudaErrorInvalidValue;
-  auto kernel = mrf_round_kernel<C, K>;
+  auto kernel = mrf_round_kernel<C, K, BF16>;
   const size_t smem = sizeof(float) * Tl::kSmemFloats;
   static const int attr = set_smem(kernel, smem);
   if (attr) return attr;
@@ -318,12 +359,22 @@ int frames_per_block(int C, int K) {
   }
 }
 
-template <int C>
+template <int C, bool BF16>
 int launch_k(int K, const RoundArgs& a, cudaStream_t stream) {
   switch (K) {
-    case 3: return launch<C, 3>(a, stream);
-    case 7: return launch<C, 7>(a, stream);
-    case 11: return launch<C, 11>(a, stream);
+    case 3: return launch<C, 3, BF16>(a, stream);
+    case 7: return launch<C, 7, BF16>(a, stream);
+    case 11: return launch<C, 11, BF16>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool BF16>
+int round_launch(const RoundArgs& a, int C, int K, cudaStream_t s) {
+  switch (C) {
+    case 32: return launch_k<32, BF16>(K, a, s);
+    case 64: return launch_k<64, BF16>(K, a, s);
+    case 128: return launch_k<128, BF16>(K, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -340,13 +391,17 @@ extern "C" int mrf_round(const float* xin, const float* w1, const float* b1,
                          float* out, int B, int C, int K, int T, int dil, int accumulate,
                          float scale, void* stream) {
   const RoundArgs a{xin, w1, b1, w2, b2, fa, fb, out, B, T, dil, accumulate, scale};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 32: return launch_k<32>(K, a, s);
-    case 64: return launch_k<64>(K, a, s);
-    case 128: return launch_k<128>(K, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return round_launch<false>(a, C, K, (cudaStream_t)stream);
+}
+
+// The same round in the bf16 mode: weights and conv inputs rounded to bf16,
+// float32 sums.
+extern "C" int mrf_round_bf16(const float* xin, const float* w1, const float* b1,
+                              const float* w2, const float* b2, const float* fa,
+                              const float* fb, float* out, int B, int C, int K, int T, int dil,
+                              int accumulate, float scale, void* stream) {
+  const RoundArgs a{xin, w1, b1, w2, b2, fa, fb, out, B, T, dil, accumulate, scale};
+  return round_launch<true>(a, C, K, (cudaStream_t)stream);
 }
 
 // Blocks of one `mrf_round` launch at this shape, or -1 if it takes none.

@@ -63,6 +63,25 @@
 // `gn_stats_kernel` reduces the partials in a fixed order in double
 // precision. No float atomics and no split K across blocks: a second call
 // gives the same bits.
+//
+// bf16 mode (the `_bf16` launchers; `bf16=True`, the default of the JAX
+// kernel's wrappers): the function of `_resblock_kernel` with bf16 dots.
+// The products' operands are rounded to bf16 (to nearest, ties to even) as
+// the fragments are built from the same float32 staging: x*m (or the
+// block's h) and w1/w2, x*m and W_res, y and W_qkv, and the attention's
+// output and g*W_o (the Rezero gain folded into the weight and bias before
+// rounding, as `pack_attn_params` does; the kernel folds it). Each pair of
+// taps is one `mma.sync.m16n8k16` bf16 step with float32 accumulation
+// (bf16_mma.cuh), the ninth tap and a 1x1 product's one padded with zeros.
+// The attention core rounds where the TPU kernel does: k stays float32
+// (its max, exp(k - max) and the sum S too), v = bf16(y Wv), the context
+// bf16(v)^T bf16(exp(k - max)) is summed in float32 and rounded after the
+// division by S, q = bf16(y Wq), and q ctx is summed in float32; its 32x32
+// per-head contractions stay on the CUDA cores. GroupNorm statistics, mish,
+// the time embedding and the residual sum are float32 in both modes. The
+// kernels are templated on the mode: the float32 instantiations are the
+// code above.
+#include "bf16_mma.cuh"
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -76,6 +95,9 @@ using arttts::cp_async_wait;
 using arttts::kThreads;
 using arttts::mish;
 using arttts::mma3;
+using arttts::mma_bf16;
+using arttts::pack_bf16;
+using arttts::round_bf16;
 using arttts::set_smem;
 using arttts::sm_count;
 using arttts::split_tf32;
@@ -130,7 +152,7 @@ struct Tile {
   static_assert(kAStage % 4 == 0 && kStage % 4 == 0, "16-byte aligned stages");
 };
 
-template <int KS, int WM, int WN, int WK>
+template <int KS, int WM, int WN, int WK, bool BF16>
 __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
   using Tl = Tile<KS, WM, WN, WK>;
   constexpr int kHalo = KS / 2;
@@ -223,6 +245,10 @@ __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
   // wn + kh, column 8 nt + g + kw
   const float* Aw0 = smem + (32 * wm + g) * Tl::kAPitch + (8 * wk + t) * Tl::kTaps;
   const float* Bw0 = smem + Tl::kAStage + (8 * wk + t) * Tl::kCiPitch + wn * Tl::kWinCols + g;
+  // the Rezero form's gain: the bf16 mode multiplies the weights by it before
+  // rounding and the bias in the epilogue, as `pack_attn_params` folds it
+  const float gain = a.resid != nullptr ? a.gain[0] : 0.f;
+  const float wgain = BF16 && a.resid != nullptr ? gain : 1.f;
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk c has landed, and every warp is done with chunk c-1
@@ -230,6 +256,42 @@ __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
     cp_async_commit();
     const float* Aw = Aw0 + (c % kStages) * Tl::kStage;
     const float* Bw = Bw0 + (c % kStages) * Tl::kStage;
+    if constexpr (BF16) {
+      // tap pairs (0, 1), (2, 3), ...; an odd tap count pads the last pair
+#pragma unroll
+      for (int pr = 0; pr < (Tl::kTaps + 1) / 2; ++pr) {
+        const int tap0 = 2 * pr, tap1 = 2 * pr + 1;
+        const bool two = tap1 < Tl::kTaps;
+        uint32_t af[2][4], bf[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* p = Aw + 16 * mt * Tl::kAPitch;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // rows g, g+8 x channels t, t+4
+            const float* q = p + (r & 1) * 8 * Tl::kAPitch + (r >> 1) * 4 * Tl::kTaps;
+            if constexpr (KS == 1)  // the Rezero gain folded in before rounding: bf16(g W_o)
+              af[mt][r] = pack_bf16(wgain * q[tap0], two ? wgain * q[tap1] : 0.f);
+            else
+              af[mt][r] = pack_bf16(q[tap0], two ? q[tap1] : 0.f);
+          }
+        }
+        const int off0 = (tap0 / KS) * Tl::kWinCols + tap0 % KS;
+        const int off1 = two ? (tap1 / KS) * Tl::kWinCols + tap1 % KS : off0;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {  // channels t, t+4
+            const float* q = Bw + r * 4 * Tl::kCiPitch + 8 * nt;
+            bf[nt][r] = pack_bf16(q[off0], two ? q[off1] : 0.f);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int kh = 0; kh < KS; ++kh) {
 #pragma unroll
@@ -280,14 +342,14 @@ __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
   const int row = h0 + wn;
   float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   if (wk == 0 && row < H) {
-    const float gain = a.resid != nullptr ? a.gain[0] : 0.f;
+    const float rgain = BF16 ? 1.f : gain;  // the gain still to apply to W x + bias
     const bool vec = !(T & 1);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int co = co0 + 32 * wm + 16 * mt + 8 * h + g;
-        const float bv = a.bias != nullptr ? a.bias[co] : 0.f;
+        const float bv = a.bias != nullptr ? wgain * a.bias[co] : 0.f;
         const size_t o = ((size_t)(b * a.Cout + co) * H + row) * T;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
@@ -296,8 +358,8 @@ __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
           const bool two = col + 1 < T;
           float v0 = acc[mt][nt][2 * h] + bv, v1 = acc[mt][nt][2 * h + 1] + bv;
           if (a.resid != nullptr) {
-            v0 = a.resid[o + col] + gain * v0;
-            v1 = two ? a.resid[o + col + 1] + gain * v1 : 0.f;
+            v0 = a.resid[o + col] + rgain * v0;
+            v1 = two ? a.resid[o + col + 1] + rgain * v1 : 0.f;
           }
           float* p = a.out + o + col;
           if (vec && two) {
@@ -349,14 +411,14 @@ __device__ __forceinline__ void igemm_body(const ConvArgs& a) {
   }
 }
 
-template <int WM, int WN, int WK>
+template <int WM, int WN, int WK, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2) conv3x3_kernel(const ConvArgs a) {
-  igemm_body<3, WM, WN, WK>(a);
+  igemm_body<3, WM, WN, WK, BF16>(a);
 }
 
-template <int WM, int WN, int WK>
+template <int WM, int WN, int WK, bool BF16>
 __global__ void __launch_bounds__(kThreads, 2) conv1x1_kernel(const ConvArgs a) {
-  igemm_body<1, WM, WN, WK>(a);
+  igemm_body<1, WM, WN, WK, BF16>(a);
 }
 
 // The three tiles, largest first: (WM, WN, WK).
@@ -377,10 +439,11 @@ int pick_tile(int B, int Cout, int H, int T) {
   return 2;
 }
 
-template <int KS, int WM, int WN, int WK>
+template <int KS, int WM, int WN, int WK, bool BF16>
 int launch_tile(const ConvArgs& a, int B, cudaStream_t stream) {
   using Tl = Tile<KS, WM, WN, WK>;
-  void (*kernel)(const ConvArgs) = KS == 3 ? conv3x3_kernel<WM, WN, WK> : conv1x1_kernel<WM, WN, WK>;
+  void (*kernel)(const ConvArgs) =
+      KS == 3 ? conv3x3_kernel<WM, WN, WK, BF16> : conv1x1_kernel<WM, WN, WK, BF16>;
   const size_t smem = sizeof(float) * Tl::kSmemFloats;
   static const int attr = set_smem(kernel, smem);
   if (attr) return attr;
@@ -390,16 +453,16 @@ int launch_tile(const ConvArgs& a, int B, cudaStream_t stream) {
   return 0;
 }
 
-template <int KS>
+template <int KS, bool BF16>
 int launch_conv(const ConvArgs& a, int B, void* stream) {
   if (a.Cout % 64 || a.c0 < 1 || a.c1 < 0 || a.H < 1 || a.T < 1)
     return (int)cudaErrorInvalidValue;
   const int cfg = pick_tile(B, a.Cout, a.H, a.T);
   if (cfg < 0) return -cfg;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (cfg == 0) return launch_tile<KS, 2, 4, 1>(a, B, s);
-  if (cfg == 1) return launch_tile<KS, 2, 2, 2>(a, B, s);
-  return launch_tile<KS, 1, 2, 4>(a, B, s);
+  if (cfg == 0) return launch_tile<KS, 2, 4, 1, BF16>(a, B, s);
+  if (cfg == 1) return launch_tile<KS, 2, 2, 2, BF16>(a, B, s);
+  return launch_tile<KS, 1, 2, 4, BF16>(a, B, s);
 }
 
 // Per (group, batch): reduce the conv's partials in a fixed order (double
@@ -507,6 +570,14 @@ attn_kstats_kernel(const float* __restrict__ qkv, float* __restrict__ kpart, int
 // with M[d] the global max of k row d (from the chunk maxima).
 constexpr int kCtxSub = 64;
 
+// x, or x rounded to bf16 in the bf16 mode
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (BF16) return round_bf16(x);
+  return x;
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 attn_ctx_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ kpart,
                         float* __restrict__ cpart, int P) {
@@ -531,8 +602,8 @@ attn_ctx_partial_kernel(const float* __restrict__ qkv, const float* __restrict__
     for (int i = tid; i < kDh * kCtxSub; i += kThreads) {
       const int row = i / kCtxSub, p = i % kCtxSub, gp = p0 + p;
       const bool in = gp < p_end;
-      ke_s[row][p] = in ? expf(k[(size_t)row * P + gp] - m_s[row]) : 0.f;
-      v_s[row][p] = in ? v[(size_t)row * P + gp] : 0.f;
+      ke_s[row][p] = in ? rnd<BF16>(expf(k[(size_t)row * P + gp] - m_s[row])) : 0.f;
+      v_s[row][p] = in ? rnd<BF16>(v[(size_t)row * P + gp]) : 0.f;
     }
     __syncthreads();
     for (int p = 0; p < kCtxSub; ++p) {
@@ -549,6 +620,7 @@ attn_ctx_partial_kernel(const float* __restrict__ qkv, const float* __restrict__
 
 // Per (head, batch): ctx[d, e] = sum over chunks of cpart / S[d], with
 // S[d] = sum_c s_c * exp(m_c - M[d]) the softmax denominator.
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 attn_ctx_final_kernel(const float* __restrict__ kpart, const float* __restrict__ cpart,
                       float* __restrict__ ctx, int n_chunks) {
@@ -572,13 +644,14 @@ attn_ctx_final_kernel(const float* __restrict__ kpart, const float* __restrict__
   }
   float* dst = ctx + (((size_t)b * 4 + hh) * kDh + d) * kDh + e4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) dst[j] = acc[j] / s_s[d];
+  for (int j = 0; j < 4; ++j) dst[j] = rnd<BF16>(acc[j] / s_s[d]);
 }
 
 // out[b, head*32 + e, p] = sum_d ctx[b, head, d, e] * q[b, head*32 + d, p].
 // Grid: (ceil(P / 128), 4, B).
 constexpr int kQP = 128;
 
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 attn_qctx_kernel(const float* __restrict__ qkv, const float* __restrict__ ctx,
                  float* __restrict__ out, int P) {
@@ -591,7 +664,7 @@ attn_qctx_kernel(const float* __restrict__ qkv, const float* __restrict__ ctx,
   const float* q = qkv + ((size_t)b * 3 * kHd + hh * kDh) * P;
   for (int i = tid; i < kDh * kQP; i += kThreads) {
     const int row = i / kQP, p = i % kQP;
-    q_s[row][p] = p0 + p < P ? q[(size_t)row * P + p0 + p] : 0.f;
+    q_s[row][p] = p0 + p < P ? rnd<BF16>(q[(size_t)row * P + p0 + p]) : 0.f;
   }
   __syncthreads();
   const int e = tid / 8, pp = (tid % 8) * 16;
@@ -607,6 +680,21 @@ attn_qctx_kernel(const float* __restrict__ qkv, const float* __restrict__ ctx,
 #pragma unroll
   for (int j = 0; j < 16; ++j)
     if (p0 + pp + j < P) dst[j] = acc[j];
+}
+
+template <bool BF16>
+int attention(const float* qkv, float* kpart, float* cpart, float* ctx, float* ao, int B, int P,
+              cudaStream_t s) {
+  const int n_chunks = ceil_div(P, kChunk);
+  attn_kstats_kernel<<<dim3(n_chunks, kHd, B), kThreads, 0, s>>>(qkv, kpart, P);
+  ARTTTS_CHECK_LAUNCH();
+  attn_ctx_partial_kernel<BF16><<<dim3(n_chunks, 4, B), kThreads, 0, s>>>(qkv, kpart, cpart, P);
+  ARTTTS_CHECK_LAUNCH();
+  attn_ctx_final_kernel<BF16><<<dim3(4, B), kThreads, 0, s>>>(kpart, cpart, ctx, n_chunks);
+  ARTTTS_CHECK_LAUNCH();
+  attn_qctx_kernel<BF16><<<dim3(ceil_div(P, kQP), 4, B), kThreads, 0, s>>>(qkv, ctx, ao, P);
+  ARTTTS_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
@@ -636,7 +724,17 @@ extern "C" int conv3x3(const float* x0, int c0, const float* x1, int c1, const i
                        int H, int T, int Cout, int masked_stats, void* stream) {
   const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, nullptr, nullptr, out, partial,
                    H, T, Cout, masked_stats};
-  return launch_conv<3>(a, B, stream);
+  return launch_conv<3, false>(a, B, stream);
+}
+
+// The same in the bf16 mode: operands rounded to bf16, float32 sums.
+extern "C" int conv3x3_bf16(const float* x0, int c0, const float* x1, int c1,
+                            const int* lengths, const float* w, const float* bias, float* out,
+                            float* partial, int B, int H, int T, int Cout, int masked_stats,
+                            void* stream) {
+  const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, nullptr, nullptr, out, partial,
+                   H, T, Cout, masked_stats};
+  return launch_conv<3, true>(a, B, stream);
 }
 
 // 1x1 convolution: out = W x + bias (bias may be null), or the Rezero form
@@ -647,7 +745,18 @@ extern "C" int conv1x1(const float* x0, int c0, const float* x1, int c1, const i
                        float* out, int B, int Cout, int H, int T, void* stream) {
   const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, resid, gain, out, nullptr,
                    H, T, Cout, 0};
-  return launch_conv<1>(a, B, stream);
+  return launch_conv<1, false>(a, B, stream);
+}
+
+// The same in the bf16 mode; the Rezero form rounds g W, not W, and adds
+// g bias: out = resid + (bf16(g W) bf16(x) + g bias).
+extern "C" int conv1x1_bf16(const float* x0, int c0, const float* x1, int c1,
+                            const int* lengths, const float* w, const float* bias,
+                            const float* resid, const float* gain, float* out, int B, int Cout,
+                            int H, int T, void* stream) {
+  const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, resid, gain, out, nullptr,
+                   H, T, Cout, 0};
+  return launch_conv<1, true>(a, B, stream);
 }
 
 extern "C" int gn_stats(const float* partial, const int* lengths, float* stats, int B,
@@ -678,15 +787,11 @@ extern "C" int attn_chunks(int P) { return ceil_div(P, kChunk); }
 // of attn_chunks(P) chunks.
 extern "C" int attention_core(const float* qkv, float* kpart, float* cpart, float* ctx,
                               float* ao, int B, int P, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int n_chunks = ceil_div(P, kChunk);
-  attn_kstats_kernel<<<dim3(n_chunks, kHd, B), kThreads, 0, s>>>(qkv, kpart, P);
-  ARTTTS_CHECK_LAUNCH();
-  attn_ctx_partial_kernel<<<dim3(n_chunks, 4, B), kThreads, 0, s>>>(qkv, kpart, cpart, P);
-  ARTTTS_CHECK_LAUNCH();
-  attn_ctx_final_kernel<<<dim3(4, B), kThreads, 0, s>>>(kpart, cpart, ctx, n_chunks);
-  ARTTTS_CHECK_LAUNCH();
-  attn_qctx_kernel<<<dim3(ceil_div(P, kQP), 4, B), kThreads, 0, s>>>(qkv, ctx, ao, P);
-  ARTTTS_CHECK_LAUNCH();
-  return 0;
+  return attention<false>(qkv, kpart, cpart, ctx, ao, B, P, (cudaStream_t)stream);
+}
+
+// The same with the bf16 mode's rounding points (v, exp(k - max), ctx, q).
+extern "C" int attention_core_bf16(const float* qkv, float* kpart, float* cpart, float* ctx,
+                                   float* ao, int B, int P, void* stream) {
+  return attention<true>(qkv, kpart, cpart, ctx, ao, B, P, (cudaStream_t)stream);
 }

@@ -65,12 +65,21 @@
 // 5. Tensor cores: TF32 `mma.sync` at 3 passes replaces float32 FMAs on the
 //    CUDA cores. `mma.sync` over `wgmma`: the GEMMs are small (M <= 128,
 //    K <= 1,152) and the split needs the operands in registers anyway.
+// bf16 mode (`bf16` = 1, the JAX kernels' default `bf16=True`): the masked
+// input and the weights are rounded to bf16 (to nearest, ties to even) as
+// the fragments are built from the same float32 staging, and each pair of
+// taps is one `mma.sync.m16n8k16` bf16 step with float32 accumulation
+// (bf16_mma.cuh) where the float32 mode runs three TF32 steps per tap. K2's
+// nine taps make five pairs, the last padded with zeros; K3's four taps a
+// class make two. The kernels are templated on the mode: the float32
+// instantiation is the 3xTF32 code above.
 // K3 computes all four parity classes of its outputs from one staged input
 // window (two warps per class, 4x reuse), stages the classes' outputs in
 // shared memory and writes the interleaved 4 x 32 output patch of each
 // channel with 16-byte stores. No atomics and no split K: every output is
 // summed in one fixed order, so a call gives the same bits on every run.
 #include "common.cuh"
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -81,6 +90,8 @@ using arttts::cp_async4;
 using arttts::cp_async_commit;
 using arttts::cp_async_wait;
 using arttts::mma3;
+using arttts::mma_bf16;
+using arttts::pack_bf16;
 using arttts::set_smem;
 using arttts::sm_count;
 using arttts::split_tf32;
@@ -116,7 +127,7 @@ struct DnTile {
   static_assert(kStage % 4 == 0 && kAStage % 4 == 0, "16-byte aligned stages");
 };
 
-template <int R>
+template <int R, bool BF16>
 __global__ void __launch_bounds__(kThr, 2)
 downsample_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                   const float* __restrict__ w, const float* __restrict__ bias,
@@ -188,11 +199,35 @@ downsample_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
     const float* As = smem + (c % kStages) * Tile::kStage;
     const float* Aw = As + (wm * 16 + g) * kDnAPitch + t * 9;
     const float* Bw = As + Tile::kAStage + t * Tile::kCiPitch + g;
+    // window offset of tap (kh, kw) for n8 tile q of the block
+    auto b_off = [](int q, int tap) {
+      const int kh = tap / 3, kw = tap % 3;
+      return (2 * (q >> 1) + kh) * kDnRowPitch + (kw & 1) * kDnPlane + (q & 1) * 8 + (kw >> 1);
+    };
+    if constexpr (BF16) {
 #pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
+      for (int pr = 0; pr < 5; ++pr) {  // tap pairs (0, 1) .. (8, pad)
+        const int t0 = 2 * pr, t1 = 2 * pr + 1;
+        const bool two = t1 < 9;
+        uint32_t a[4], bb[R][2];
+        a[0] = pack_bf16(Aw[t0], two ? Aw[t1] : 0.f);
+        a[1] = pack_bf16(Aw[8 * kDnAPitch + t0], two ? Aw[8 * kDnAPitch + t1] : 0.f);
+        a[2] = pack_bf16(Aw[36 + t0], two ? Aw[36 + t1] : 0.f);
+        a[3] = pack_bf16(Aw[8 * kDnAPitch + 36 + t0], two ? Aw[8 * kDnAPitch + 36 + t1] : 0.f);
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int tap = kh * 3 + kw;
+        for (int nt = 0; nt < R; ++nt) {
+          const int q = q0 + nt;
+          const float* p0 = Bw + b_off(q, t0);
+          const float* p1 = Bw + b_off(q, two ? t1 : t0);
+          bb[nt][0] = pack_bf16(p0[0], two ? p1[0] : 0.f);
+          bb[nt][1] = pack_bf16(p0[4 * Tile::kCiPitch], two ? p1[4 * Tile::kCiPitch] : 0.f);
+        }
+#pragma unroll
+        for (int nt = 0; nt < R; ++nt) mma_bf16(acc[nt], a, bb[nt]);
+      }
+    } else {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
         uint32_t ah[4], al[4], bh[R][2], bl[R][2];
         split_tf32(Aw[tap], ah[0], al[0]);
         split_tf32(Aw[8 * kDnAPitch + tap], ah[1], al[1]);
@@ -200,9 +235,7 @@ downsample_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
         split_tf32(Aw[8 * kDnAPitch + 36 + tap], ah[3], al[3]);
 #pragma unroll
         for (int nt = 0; nt < R; ++nt) {
-          const int q = q0 + nt;
-          const int off = (2 * (q >> 1) + kh) * kDnRowPitch + (kw & 1) * kDnPlane +
-                          (q & 1) * 8 + (kw >> 1);
+          const int off = b_off(q0 + nt, tap);
           split_tf32(Bw[off], bh[nt][0], bl[nt][0]);
           split_tf32(Bw[4 * Tile::kCiPitch + off], bh[nt][1], bl[nt][1]);
         }
@@ -259,6 +292,7 @@ static_assert(kUpCiPitchA >= 16 * kUpTapPitch && kUpTapPitch >= kCoTile, "pitch"
 static_assert(kCoTile * kUpOutCo <= kStages * kUpStage, "output patch fits the ring");
 static_assert((kCoTile * 16) % kThr == 0, "weight copies split evenly");
 
+template <bool BF16>
 __global__ void __launch_bounds__(kThr, 2)
 convt_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
              const float* __restrict__ w, const float* __restrict__ bias,
@@ -335,29 +369,57 @@ convt_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
     const float* As = smem + (c % kStages) * kUpStage;
     const float* Aw = As + t * kUpCiPitchA + g;
     const float* Bw = As + kUpAStage + t * kUpCiPitchB + g;
+    // the class's weights and window offset at tap (jy, jx), n8 tile nt
+    auto a_tap = [&](int jy, int jx) {
+      return Aw + ((1 - py + 2 * jy) * 4 + (1 - px + 2 * jx)) * kUpTapPitch;
+    };
+    auto b_off = [&](int jy, int jx, int nt) {
+      return ((nt >> 1) + 1 + py - jy) * kUpWinCols + (nt & 1) * 8 + 1 + px - jx;
+    };
 #pragma unroll
     for (int jy = 0; jy < 2; ++jy) {
-#pragma unroll
-      for (int jx = 0; jx < 2; ++jx) {
-        const int tap = (1 - py + 2 * jy) * 4 + (1 - px + 2 * jx);
-        const float* Ak = Aw + tap * kUpTapPitch;
-        uint32_t bh[4][2], bl[4][2];
+      if constexpr (BF16) {  // one k16 step: taps (jy, 0) and (jy, 1)
+        uint32_t bb[4][2];
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          const int off =
-              ((nt >> 1) + 1 + py - jy) * kUpWinCols + (nt & 1) * 8 + 1 + px - jx;
-          split_tf32(Bw[off], bh[nt][0], bl[nt][0]);
-          split_tf32(Bw[4 * kUpCiPitchB + off], bh[nt][1], bl[nt][1]);
+          const float* p0 = Bw + b_off(jy, 0, nt);
+          const float* p1 = Bw + b_off(jy, 1, nt);
+          bb[nt][0] = pack_bf16(p0[0], p1[0]);
+          bb[nt][1] = pack_bf16(p0[4 * kUpCiPitchB], p1[4 * kUpCiPitchB]);
         }
+        const float* A0 = a_tap(jy, 0);
+        const float* A1 = a_tap(jy, 1);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const int m = 16 * (m0 + mt);
-          uint32_t ah[4], al[4];
-          split_tf32(Ak[m], ah[0], al[0]);
-          split_tf32(Ak[m + 8], ah[1], al[1]);
-          split_tf32(Ak[4 * kUpCiPitchA + m], ah[2], al[2]);
-          split_tf32(Ak[4 * kUpCiPitchA + m + 8], ah[3], al[3]);
-          mma3(acc[mt], ah, al, bh, bl);
+          const uint32_t a[4] = {
+              pack_bf16(A0[m], A1[m]), pack_bf16(A0[m + 8], A1[m + 8]),
+              pack_bf16(A0[4 * kUpCiPitchA + m], A1[4 * kUpCiPitchA + m]),
+              pack_bf16(A0[4 * kUpCiPitchA + m + 8], A1[4 * kUpCiPitchA + m + 8])};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, bb[nt]);
+        }
+      } else {
+#pragma unroll
+        for (int jx = 0; jx < 2; ++jx) {
+          const float* Ak = a_tap(jy, jx);
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int off = b_off(jy, jx, nt);
+            split_tf32(Bw[off], bh[nt][0], bl[nt][0]);
+            split_tf32(Bw[4 * kUpCiPitchB + off], bh[nt][1], bl[nt][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int m = 16 * (m0 + mt);
+            uint32_t ah[4], al[4];
+            split_tf32(Ak[m], ah[0], al[0]);
+            split_tf32(Ak[m + 8], ah[1], al[1]);
+            split_tf32(Ak[4 * kUpCiPitchA + m], ah[2], al[2]);
+            split_tf32(Ak[4 * kUpCiPitchA + m + 8], ah[3], al[3]);
+            mma3(acc[mt], ah, al, bh, bl);
+          }
         }
       }
     }
@@ -410,42 +472,74 @@ struct DnArgs {
   cudaStream_t stream;
 };
 
-template <int R>
+template <int R, bool BF16>
 int launch_down(const DnArgs& a) {
   const size_t smem = sizeof(float) * kStages * DnTile<R>::kStage;
-  static const int attr = set_smem(downsample_kernel<R>, smem);
+  static const int attr = set_smem(downsample_kernel<R, BF16>, smem);
   if (attr) return attr;
   const dim3 grid(ceil_div(a.Ho, R) * ceil_div(a.To, kDnCols), a.Cout / kCoTile, a.B);
-  downsample_kernel<R><<<grid, kThr, smem, a.stream>>>(
+  downsample_kernel<R, BF16><<<grid, kThr, smem, a.stream>>>(
       a.x, a.lengths, a.w, a.bias, a.out, a.Cin, a.Cout, a.H, a.T, a.Ho, a.To);
   ARTTTS_CHECK_LAUNCH();
   return 0;
 }
 
-}  // namespace
+template <bool BF16>
+int launch_convt(const float* x, const int* lengths, const float* w, const float* bias,
+                 float* out, int B, int Cin, int Cout, int H, int T, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kStages * kUpStage;
+  static const int attr = set_smem(convt_kernel<BF16>, smem);
+  if (attr) return attr;
+  const dim3 grid(ceil_div(H, kUpRows) * ceil_div(T, kUpCols), Cout / kCoTile, B);
+  convt_kernel<BF16><<<grid, kThr, smem, stream>>>(x, lengths, w, bias, out, Cin, Cout, H, T);
+  ARTTTS_CHECK_LAUNCH();
+  return 0;
+}
 
-extern "C" int downsample3x3s2(const float* x, const int* lengths, const float* w,
-                               const float* bias, float* out, int B, int Cin, int Cout,
-                               int H, int T, void* stream) {
+template <bool BF16>
+int downsample(const float* x, const int* lengths, const float* w, const float* bias,
+               float* out, int B, int Cin, int Cout, int H, int T, void* stream) {
   if (Cin % kCi || Cout % kCoTile) return (int)cudaErrorInvalidValue;
   const int Ho = (H + 1) / 2, To = (T + 1) / 2;
   const int sms = sm_count();
   if (sms < 0) return -sms;
   const long blocks4 = (long)ceil_div(Ho, 4) * ceil_div(To, kDnCols) * (Cout / kCoTile) * B;
   const DnArgs a{x, lengths, w, bias, out, B, Cin, Cout, H, T, Ho, To, (cudaStream_t)stream};
-  return blocks4 >= sms ? launch_down<4>(a) : launch_down<2>(a);
+  return blocks4 >= sms ? launch_down<4, BF16>(a) : launch_down<2, BF16>(a);
+}
+
+template <bool BF16>
+int convt(const float* x, const int* lengths, const float* w, const float* bias, float* out,
+          int B, int Cin, int Cout, int H, int T, void* stream) {
+  if (Cin % kCi || Cout % kCoTile) return (int)cudaErrorInvalidValue;
+  return launch_convt<BF16>(x, lengths, w, bias, out, B, Cin, Cout, H, T,
+                            (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// float32 accuracy (3xTF32)
+extern "C" int downsample3x3s2(const float* x, const int* lengths, const float* w,
+                               const float* bias, float* out, int B, int Cin, int Cout,
+                               int H, int T, void* stream) {
+  return downsample<false>(x, lengths, w, bias, out, B, Cin, Cout, H, T, stream);
+}
+
+// the bf16 mode: bf16 operands, float32 sums
+extern "C" int downsample3x3s2_bf16(const float* x, const int* lengths, const float* w,
+                                    const float* bias, float* out, int B, int Cin, int Cout,
+                                    int H, int T, void* stream) {
+  return downsample<true>(x, lengths, w, bias, out, B, Cin, Cout, H, T, stream);
 }
 
 extern "C" int convt4x4s2(const float* x, const int* lengths, const float* w,
                           const float* bias, float* out, int B, int Cin, int Cout, int H,
                           int T, void* stream) {
-  if (Cin % kCi || Cout % kCoTile) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kStages * kUpStage;
-  static const int attr = set_smem(convt_kernel, smem);
-  if (attr) return attr;
-  const dim3 grid(ceil_div(H, kUpRows) * ceil_div(T, kUpCols), Cout / kCoTile, B);
-  convt_kernel<<<grid, kThr, smem, (cudaStream_t)stream>>>(x, lengths, w, bias, out, Cin, Cout,
-                                                           H, T);
-  ARTTTS_CHECK_LAUNCH();
-  return 0;
+  return convt<false>(x, lengths, w, bias, out, B, Cin, Cout, H, T, stream);
+}
+
+extern "C" int convt4x4s2_bf16(const float* x, const int* lengths, const float* w,
+                               const float* bias, float* out, int B, int Cin, int Cout, int H,
+                               int T, void* stream) {
+  return convt<true>(x, lengths, w, bias, out, B, Cin, Cout, H, T, stream);
 }

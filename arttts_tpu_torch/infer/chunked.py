@@ -94,12 +94,13 @@ def vocode_chunked(
 
 
 def vocode_sparc(module, feats: np.ndarray, spk_ft: np.ndarray, device="cuda",
-                 **kwargs) -> np.ndarray:
+                 bf16: bool = False, **kwargs) -> np.ndarray:
     """A (T, 14) articulatory track -> (T*256,) waveform through the SPARC
     generator's fast path: the vocoding body of the JAX package's
     `infer/pipeline.py:run_sparc_vocoder`. `module` is a
-    `SpkSparcHiFiGANGenerator` living on `device`; `kwargs` go to
-    `vocode_chunked` (chunk, halo, win_batch)."""
+    `SpkSparcHiFiGANGenerator` living on `device`; `bf16` runs K4 in its
+    bf16 mode; `kwargs` go to `vocode_chunked` (chunk, halo, win_batch)."""
     check_module(module, device)
-    return vocode_chunked(lambda c, s: spk_sparc_forward_fast(module, c, s), feats,
+    mode = {"bf16": True} if bf16 else {}
+    return vocode_chunked(lambda c, s: spk_sparc_forward_fast(module, c, s, **mode), feats,
                           spk=spk_ft, device=device, **kwargs)

@@ -75,12 +75,13 @@ def run_acoustic_inference(config: ExperimentConfig, model, dataset, save_dir: s
                            n_timesteps: int = 50, temperature: float = 1.0,
                            length_scale: float = 1.0, use_align: bool = False, seed: int = 37,
                            max_frames_cap: int = 2048, solver: str = "euler",
-                           device="cuda") -> list:
+                           device="cuda", kernel_bf16: bool = False) -> list:
     """Per-sample synthesis over `dataset`, saving the (29|161, T) npy
     contract. With `use_align` and an item's "durations" (aligned-input
     models) the bucket comes from the summed durations; otherwise one
-    encoder pass sizes the bucket and feeds the decoder. Returns the saved
-    paths."""
+    encoder pass sizes the bucket and feeds the decoder. `kernel_bf16` runs
+    the score network's kernels in their bf16 mode (`infer/sampler.py`).
+    Returns the saved paths."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     is_artic = config.model.n_feats == 16
@@ -100,7 +101,7 @@ def run_acoustic_inference(config: ExperimentConfig, model, dataset, save_dir: s
             enc, dec, attn, y_len = synthesize(
                 model, generator, x, x_lengths, n_timesteps, max_frames, temperature,
                 length_scale=length_scale, x_durations=durations, device=device, spk=spk,
-                solver=solver)
+                solver=solver, kernel_bf16=kernel_bf16)
         else:
             mu_x, logw, x_mask, pf = encode_text(model, x, x_lengths, spk, device)
             pred_frames = min(max_frames_cap,
@@ -108,7 +109,8 @@ def run_acoustic_inference(config: ExperimentConfig, model, dataset, save_dir: s
             max_frames = frame_bucket(min(fix_len_compatibility(pred_frames), max_frames_cap))
             enc, dec, attn, y_len = synthesize_from_encoding(
                 model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
-                length_scale=length_scale, device=device, spk=spk, solver=solver)
+                length_scale=length_scale, device=device, spk=spk, solver=solver,
+                kernel_bf16=kernel_bf16)
         saved.append(_save_artifact(save_dir / f"{_sample_id(dataset, index)}.npy", enc[0],
                                     dec[0], attn[0], int(y_len[0]), is_artic))
     return saved
@@ -132,7 +134,7 @@ def run_acoustic_inference_batched(config: ExperimentConfig, model, dataset, sav
                                    batch_size: int = 8, n_timesteps: int = 50,
                                    temperature: float = 1.0, seed: int = 37,
                                    max_frames_cap: int = 2048, solver: str = "euler",
-                                   device="cuda") -> list:
+                                   device="cuda", kernel_bf16: bool = False) -> list:
     """Batched synthesis (serving mode): items are ordered by input length,
     padded to shared text buckets (32 ... 512) and one frame bucket per
     batch, and synthesized `batch_size` sentences a call. `masked_norm` is
@@ -162,7 +164,7 @@ def run_acoustic_inference_batched(config: ExperimentConfig, model, dataset, sav
         if "spk" in items[idx[0]]:
             spk = torch.as_tensor(np.stack([np.asarray(items[i]["spk"]) for i in idx]))
         kw = dict(n_timesteps=n_timesteps, temperature=temperature, device=device, spk=spk,
-                  solver=solver)
+                  solver=solver, kernel_bf16=kernel_bf16)
         if "durations" in items[idx[0]]:  # aligned-input models (v6)
             dur = np.zeros((B, T_x), np.float32)
             for j, i in enumerate(idx):
@@ -207,18 +209,18 @@ def denormalize_sparc_features(dec: np.ndarray, pitch_stats: tuple,
 
 
 def run_mel_vocoder(vocoder, artifact_paths, save_dir: str, sample_rate: int = 22050,
-                    device="cuda") -> list:
+                    device="cuda", kernel_bf16: bool = False) -> list:
     """Saved (161, T) mel artifacts -> wav through the `HiFiGANGenerator`
     `vocoder` on its fast path (vocoder_inference.py:137-141): fixed-shape
-    windows of `vocode_chunked` over `hifigan_forward_fast` (K4, K5).
-    Returns the saved paths."""
+    windows of `vocode_chunked` over `hifigan_forward_fast` (K4, K5; K4 in
+    its bf16 mode with `kernel_bf16`). Returns the saved paths."""
     check_module(vocoder, device)
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     saved = []
     for p in artifact_paths:
         _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=80)
-        wav = vocode_chunked(lambda c: hifigan_forward_fast(vocoder, c),
+        wav = vocode_chunked(lambda c: hifigan_forward_fast(vocoder, c, kernel_bf16),
                              dec.astype(np.float32), device=device)
         out = save_dir / (Path(p).stem + ".wav")
         save_wav(out, wav, sample_rate)
@@ -228,10 +230,12 @@ def run_mel_vocoder(vocoder, artifact_paths, save_dir: str, sample_rate: int = 2
 
 def run_sparc_vocoder(generator, artifact_paths, spk_ft: np.ndarray, save_dir: str,
                       pitch_stats: tuple, loudness_stats: Optional[tuple] = None,
-                      sample_rate: int = 16000, device="cuda") -> list:
+                      sample_rate: int = 16000, device="cuda",
+                      kernel_bf16: bool = False) -> list:
     """Saved (29, T) articulatory artifacts -> wav through the
     `SpkSparcHiFiGANGenerator` `generator` on its fast path
-    (hifigan_inference_ms.py:91-141). Returns the saved paths."""
+    (hifigan_inference_ms.py:91-141; K4 in its bf16 mode with
+    `kernel_bf16`). Returns the saved paths."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     saved = []
@@ -239,7 +243,8 @@ def run_sparc_vocoder(generator, artifact_paths, spk_ft: np.ndarray, save_dir: s
         _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=14)
         dec = denormalize_sparc_features(dec, pitch_stats, loudness_stats)
         # fixed-shape windows: one window shape serves every artifact length
-        wav = vocode_sparc(generator, dec.astype(np.float32), spk_ft, device=device)
+        wav = vocode_sparc(generator, dec.astype(np.float32), spk_ft, device=device,
+                           bf16=kernel_bf16)
         out = save_dir / (Path(p).stem + ".wav")
         save_wav(out, wav, sample_rate)
         saved.append(str(out))

@@ -19,6 +19,12 @@ as in the JAX signatures. `solver` picks Euler (`reverse_diffusion`, the
 reference protocol), Heun (`reverse_diffusion_heun`, two evaluations a
 step) or DPM-Solver++(2M) (`reverse_diffusion_dpm2m`, one a step); all
 three call the same score function.
+
+`kernel_bf16=True` runs the kernels (K1-K3 in the score network, K4 in the
+vocoder) in the JAX kernels' bf16 mode, which the JAX package's TPU serving
+path takes by default for K1-K3: bf16 operands in every product, float32
+sums. It is a library argument, as `bf16` is in the JAX package; the
+port's default stays float32 and no CLI sets it.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ def _on(device, *tensors):
 
 @torch.inference_mode()
 def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, spk=None,
-                      generator: Optional[torch.Generator] = None, score_fn=None):
+                      generator: Optional[torch.Generator] = None, score_fn=None,
+                      kernel_bf16: bool = False):
     """Euler reverse-SDE (stoc) or probability-flow ODE sampler.
 
     z, mu: (B, T, C); mask: (B, T, 1). `generator` draws the stochastic
@@ -52,7 +59,7 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
     h = 1.0 / n_timesteps
     B = z.shape[0]
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1])
+        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
     if stoc and generator is None:
         raise ValueError("stoc=True needs a generator")
     xt = z * mask
@@ -71,7 +78,8 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
 
 
 @torch.inference_mode()
-def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score_fn=None):
+def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score_fn=None,
+                           kernel_bf16: bool = False):
     """Second-order (Heun) probability-flow ODE sampler: the ODE of
     `reverse_diffusion` (stoc=False), dx/dt = -0.5 * beta(t) * (mu - x -
     score(x, t)), from t=1 to t=0 on a uniform midpoint grid, two score
@@ -80,7 +88,7 @@ def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score
     h = 1.0 / n_timesteps
     B = z.shape[0]
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1])
+        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
 
     def drift(xt, t_scalar):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
@@ -137,7 +145,7 @@ def dpm2m_schedule(beta_min: float, beta_max: float, n_timesteps: int,
 
 @torch.inference_mode()
 def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
-                            t_end: float = 1e-2, score_fn=None):
+                            t_end: float = 1e-2, score_fn=None, kernel_bf16: bool = False):
     """DPM-Solver++(2M) for the probability-flow ODE: one score evaluation
     a step, multistep second order, with a first-order denoise-to-x0 final
     step. The model's score s gives the data prediction x0 = (y +
@@ -148,7 +156,7 @@ def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
                        n_timesteps, t_end), dtype=z.dtype).tolist()
     B = z.shape[0]
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1])
+        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
 
     def score_x0(y, t_scalar, sig, alp):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
@@ -192,7 +200,7 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
                              n_timesteps: int, max_frames: int, temperature: float = 1.0,
                              stoc: bool = False, length_scale: float = 1.0,
                              x_durations=None, device="cuda", spk=None,
-                             solver: str = "euler"):
+                             solver: str = "euler", kernel_bf16: bool = False):
     """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
     diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
     (B, max_frames, n_feats), masked past y_lengths."""
@@ -212,12 +220,13 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
     noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
     z = mu_y + noise / temperature
+    kb = dict(kernel_bf16=kernel_bf16)
     if solver == "heun":
-        dec = reverse_diffusion_heun(model, z, y_mask, mu_y, n_timesteps, spk)
+        dec = reverse_diffusion_heun(model, z, y_mask, mu_y, n_timesteps, spk, **kb)
     elif solver == "dpm":
-        dec = reverse_diffusion_dpm2m(model, z, y_mask, mu_y, n_timesteps, spk)
+        dec = reverse_diffusion_dpm2m(model, z, y_mask, mu_y, n_timesteps, spk, **kb)
     else:
-        dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator)
+        dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator, **kb)
     return mu_y * y_mask, dec * y_mask, attn, y_lengths
 
 
@@ -225,7 +234,7 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
 def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int,
                max_frames: int, temperature: float = 1.0, stoc: bool = False,
                length_scale: float = 1.0, x_durations=None, device="cuda", spk=None,
-               solver: str = "euler"):
+               solver: str = "euler", kernel_bf16: bool = False):
     """Inputs (B, T_x) ids or (B, T_x, n_input_feats) traits -> (mu_y, dec,
     attn, y_lengths)."""
     x, x_lengths, spk = _on(device, x, x_lengths, spk)
@@ -234,30 +243,32 @@ def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int
     return synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
         stoc, length_scale, x_durations, device, spk=spk, solver=solver,
+        kernel_bf16=kernel_bf16,
     )
 
 
 @torch.inference_mode()
-def vocode(vocoder, mel, device="cuda"):
+def vocode(vocoder, mel, device="cuda", kernel_bf16: bool = False):
     """(B, T, 80) -> (B, T*256, 1) on the fast path
     (`models/hifigan.py:hifigan_forward_fast`: MRF stages on K4, stride-2
     upsamples on K5), as the JAX package's `_vocode` runs off the CPU."""
     (mel,) = _on(device, mel)
     check_module(vocoder, device)
-    return hifigan_forward_fast(vocoder, mel)
+    return hifigan_forward_fast(vocoder, mel, bf16=kernel_bf16)
 
 
 @torch.inference_mode()
 def synthesize_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
                       n_timesteps: int, max_frames: int, temperature: float = 1.0,
                       stoc: bool = False, x_durations=None, device="cuda", spk=None,
-                      solver: str = "euler"):
+                      solver: str = "euler", kernel_bf16: bool = False):
     """Text -> waveform: (wav (B, max_frames*256, 1), y_lengths)."""
     _, dec, _, y_lengths = synthesize(
         model, generator, x, x_lengths, n_timesteps, max_frames, temperature, stoc,
         x_durations=x_durations, device=device, spk=spk, solver=solver,
+        kernel_bf16=kernel_bf16,
     )
-    return vocode(vocoder, dec, device), y_lengths
+    return vocode(vocoder, dec, device, kernel_bf16), y_lengths
 
 
 @torch.inference_mode()
@@ -265,13 +276,14 @@ def synthesize_to_wav_from_encoding(model, vocoder, generator: torch.Generator, 
                                     x_mask, n_timesteps: int, max_frames: int,
                                     temperature: float = 1.0, stoc: bool = False,
                                     x_durations=None, device="cuda", spk=None,
-                                    solver: str = "euler"):
+                                    solver: str = "euler", kernel_bf16: bool = False):
     """Decode + vocode from `encode_text`'s outputs: (wav, y_lengths)."""
     _, dec, _, y_lengths = synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature, stoc,
         x_durations=x_durations, device=device, spk=spk, solver=solver,
+        kernel_bf16=kernel_bf16,
     )
-    return vocode(vocoder, dec, device), y_lengths
+    return vocode(vocoder, dec, device, kernel_bf16), y_lengths
 
 
 def frame_bucket(predicted_frames: int, buckets=(128, 256, 384, 512, 768, 1024)) -> int:
@@ -285,7 +297,8 @@ def frame_bucket(predicted_frames: int, buckets=(128, 256, 384, 512, 768, 1024))
 
 def serve_text_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
                       n_timesteps: int = 50, temperature: float = 1.0, spk=None,
-                      solver: str = "euler", max_frames_cap: int = 2048, device="cuda"):
+                      solver: str = "euler", max_frames_cap: int = 2048, device="cuda",
+                      kernel_bf16: bool = False):
     """The request path: encode once, pick the smallest bucket holding the
     predicted length on the host, then decode and vocode.
     Returns (wav, y_lengths, bucket)."""
@@ -294,6 +307,6 @@ def serve_text_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
     bucket = frame_bucket(min(fix_len_compatibility(max(pred_frames, 4)), max_frames_cap))
     wav, y_lengths = synthesize_to_wav_from_encoding(
         model, vocoder, generator, mu_x, logw, x_mask, n_timesteps, bucket, temperature,
-        device=device, spk=spk, solver=solver,
+        device=device, spk=spk, solver=solver, kernel_bf16=kernel_bf16,
     )
     return wav, y_lengths, bucket

@@ -248,9 +248,10 @@ def _upsample(x, conv: nn.ConvTranspose1d):
     return conv(leaky_relu(x))
 
 
-def _mrf(x, blocks, spk_emb=None):
-    """One stage's branch average: K4 where it takes the width, else the
-    blocks themselves. With `spk_emb` the blocks are `FiLMResBlock`s."""
+def _mrf(x, blocks, spk_emb=None, bf16=False):
+    """One stage's branch average: K4 (in its bf16 mode with `bf16`) where it
+    takes the width, else the blocks themselves. With `spk_emb` the blocks
+    are `FiLMResBlock`s."""
     if not mrf_supported(x.shape[1], [b.kernel_size for b in blocks]):
         args = () if spk_emb is None else (spk_emb,)
         return sum(b(x, *args) for b in blocks) / len(blocks)
@@ -258,40 +259,42 @@ def _mrf(x, blocks, spk_emb=None):
     if spk_emb is not None:
         ab = [b.film_vectors(spk_emb) for b in blocks]
         film = (torch.stack([a for a, _ in ab]), torch.stack([b for _, b in ab]))
-    return mrf_stage(x, stage_weights(blocks), film)
+    return mrf_stage(x, stage_weights(blocks), film, bf16)
 
 
 @torch.inference_mode()
-def hifigan_forward_fast(vocoder: HiFiGANGenerator, mel):
-    """`HiFiGANGenerator.forward` with its MRF stages on K4 (C <= 128) and
-    its stride-2 upsamples on K5: mel (B, T, 80) -> wav (B, T*256, 1)."""
+def hifigan_forward_fast(vocoder: HiFiGANGenerator, mel, bf16: bool = False):
+    """`HiFiGANGenerator.forward` with its MRF stages on K4 (C <= 128; its
+    bf16 mode with `bf16`) and its stride-2 upsamples on K5: mel (B, T, 80)
+    -> wav (B, T*256, 1)."""
     x = vocoder.conv_pre(mel.transpose(1, 2))
     n = vocoder.num_kernels
     for i, up in enumerate(vocoder.ups):
         x = _upsample(x, up)
-        x = _mrf(x, vocoder.resblocks[i * n:(i + 1) * n])
+        x = _mrf(x, vocoder.resblocks[i * n:(i + 1) * n], bf16=bf16)
     x = vocoder.conv_post(F.leaky_relu(x, 0.01))
     return torch.tanh(x).transpose(1, 2)
 
 
 @torch.inference_mode()
-def sparc_forward_fast(generator: SparcHiFiGANGenerator, c, spk_emb):
+def sparc_forward_fast(generator: SparcHiFiGANGenerator, c, spk_emb, bf16: bool = False):
     """`SparcHiFiGANGenerator.forward` (FiLM dropout off) with its FiLM-MRF
-    stages on K4's FiLM mode (C <= 128) and its stride-2 upsamples on K5.
-    The FiLM MLPs run here in plain PyTorch and hand (a, b) to the kernel."""
+    stages on K4's FiLM mode (C <= 128; its bf16 mode with `bf16`) and its
+    stride-2 upsamples on K5. The FiLM MLPs run here in plain PyTorch and
+    hand (a, b) to the kernel."""
     x = generator.input_conv(generator.rescale_pitch(c))
     n = generator.num_blocks
     for i, up in enumerate(generator.upsamples):
         x = _upsample(x, up[1])
-        x = _mrf(x, generator.blocks[i * n:(i + 1) * n], spk_emb)
+        x = _mrf(x, generator.blocks[i * n:(i + 1) * n], spk_emb, bf16)
     return generator.output_conv(x).transpose(1, 2)
 
 
 @torch.inference_mode()
-def spk_sparc_forward_fast(module: SpkSparcHiFiGANGenerator, c, spk_ft):
+def spk_sparc_forward_fast(module: SpkSparcHiFiGANGenerator, c, spk_ft, bf16: bool = False):
     """`SpkSparcHiFiGANGenerator.forward` on the fast path: speaker MLP,
     then `sparc_forward_fast`. c (B, T, 14), spk_ft (B, spk_ft_size)."""
-    return sparc_forward_fast(module.generator, c, module.spk_ft(spk_ft))
+    return sparc_forward_fast(module.generator, c, module.spk_ft(spk_ft), bf16)
 
 
 def build_vocoder(device="cuda", seed: int = 1, **kwargs) -> HiFiGANGenerator:

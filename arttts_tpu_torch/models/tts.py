@@ -38,9 +38,6 @@ class Diffusion(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         d = config.decoder
-        if d.compute_dtype != "float32":
-            raise NotImplementedError("the port serves float32 decoders only (bfloat16 is "
-                                      "ROADMAP A6)")
         kw = dict(dim=d.dim, dim_mults=tuple(d.dim_mults), groups=d.groups,
                   n_spks=config.n_spks, spk_emb_dim=config.spk_emb_dim,
                   n_feats=config.n_feats, pe_scale=d.pe_scale, masked_norm=d.masked_norm)
@@ -49,8 +46,9 @@ class Diffusion(nn.Module):
             # prepends the (1, 9) channel-attention PreBlock
             self.estimator = GradLogPEstimator2d(
                 **kw, use_preblock=d.kind == "unet1d_preblock",
-                preblock_kernel=d.preblock_kernel)
+                preblock_kernel=d.preblock_kernel, compute_dtype=d.compute_dtype)
         elif d.kind == "unet1d":
+            # float32 whatever `compute_dtype` says, as the JAX 1D decoder
             self.estimator = GradLogPEstimator1d(**kw)
         else:
             raise ValueError(f"unknown decoder kind {d.kind!r}")

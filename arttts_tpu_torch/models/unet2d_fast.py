@@ -17,6 +17,11 @@ those compute masked statistics; elsewhere it runs the module, whose
 statistics include padded frames unless `masked_norm`. The port runs its
 kernels at every bucket and reproduces that choice with K1's statistics mode
 (`masked_statistics`).
+
+`bf16=True` (`make_score_fn(..., kernel_bf16=True)`) runs K1-K3 in the JAX
+kernels' bf16 mode, which `arttts_tpu/models/unet2d_fast.py:score2d_fast`
+takes by default on a TPU: bf16 operands in every product, float32 sums,
+statistics and activations. The port's default stays float32.
 """
 
 from __future__ import annotations
@@ -120,10 +125,11 @@ class KernelWeights:
 
 
 def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_stats: bool,
-                 eps: float) -> torch.Tensor:
+                 eps: float, bf16: bool = False) -> torch.Tensor:
     """Noise estimate of (B, T, n_feats) inputs through K1-K3; mask (B, T, 1),
     t (B,), spk_emb (B, spk_emb_dim) the speaker embedding of a
-    multi-speaker model. The U-Net's frame axis must divide by 4."""
+    multi-speaker model; `bf16` the kernels' bf16 mode. The U-Net's frame
+    axis must divide by 4."""
     B, T, F = xt.shape
     if T % 4:
         raise ValueError(f"frame axis {T} must be divisible by 4 (fix_len_compatibility)")
@@ -136,16 +142,16 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_sta
         mlp = kw.blocks[i].mlp[1]
         temb = torch.addmm(mlp.bias, tmish, mlp.weight.t())  # the block's Dense
         return resblock2d(xs, lens, temb, kw.block_w[i], masked_stats=masked_stats,
-                          eps=eps, attn=kw.attn_w.get(i))
+                          eps=eps, attn=kw.attn_w.get(i), bf16=bf16)
 
     img = kw.est.input_planes(xt, mu, spk_emb).contiguous()  # (B, 2 or 3, F, T)
     h = rb(0, [img], lengths)  # K1 masks its input, the speaker plane too
     h = rb(1, [h], lengths)  # level 1's output feeds no skip: two ups
-    h = downsample2d(h, lengths, *kw.down[0])
+    h = downsample2d(h, lengths, *kw.down[0], bf16=bf16)
     h = rb(2, [h], lengths2)
     h = rb(3, [h], lengths2)
     hid2 = h
-    h = downsample2d(h, lengths2, *kw.down[1])
+    h = downsample2d(h, lengths2, *kw.down[1], bf16=bf16)
     h = rb(4, [h], lengths4)
     h = rb(5, [h], lengths4)
     hid3 = h
@@ -153,25 +159,29 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_sta
     h = rb(7, [h], lengths4)
     h = rb(8, [h, hid3], lengths4)
     h = rb(9, [h], lengths4)
-    h = conv_transpose2d(h, lengths4, *kw.up[0])
+    h = conv_transpose2d(h, lengths4, *kw.up[0], bf16=bf16)
     h = rb(10, [h, hid2], lengths2)
     h = rb(11, [h], lengths2)
-    h = conv_transpose2d(h, lengths2, *kw.up[1])
-    h = resblock2d([h], lengths, None, kw.final, masked_stats=masked_stats, eps=eps)
+    h = conv_transpose2d(h, lengths2, *kw.up[1], bf16=bf16)
+    h = resblock2d([h], lengths, None, kw.final, masked_stats=masked_stats, eps=eps,
+                   bf16=bf16)
     out = torch.einsum("c,bchw->bhw", kw.out_w, h) + kw.out_b  # (B, F, T)
     return (out * mask.transpose(1, 2)).transpose(1, 2)
 
 
-def make_score_fn(model, T: int) -> Callable:
+def make_score_fn(model, T: int, kernel_bf16: bool = False) -> Callable:
     """The score function the sampler calls at frame bucket T:
     (xt, mask, mu, t, spk) -> (B, T, n_feats). A 2D U-Net decoder runs
     through the kernels at every bucket, with the GroupNorm statistics the
-    JAX package computes there; the 1D and preblock decoders, which no
-    kernel covers (the JAX package's `unet2d_fast_supported` is false for
-    them), run the module (`model.estimate_noise`). `spk` is the raw
-    speaker input (`model.embed_speaker`'s argument)."""
+    JAX package computes there, in their bf16 mode with `kernel_bf16`; the
+    1D and preblock decoders and a decoder with `compute_dtype="bfloat16"`,
+    which no kernel covers (the JAX package's `unet2d_fast_supported` is
+    false for them), run the module (`model.estimate_noise`), whatever
+    `kernel_bf16` says. `spk` is the raw speaker input
+    (`model.embed_speaker`'s argument)."""
     cfg = model.config
-    if cfg.decoder.kind in ("unet1d", "unet1d_preblock"):
+    if (cfg.decoder.kind in ("unet1d", "unet1d_preblock")
+            or cfg.decoder.compute_dtype != "float32"):
         return lambda xt, mask, mu, t, spk=None: model.estimate_noise(xt, mask, mu, t, spk)
     if not supported(cfg):
         raise NotImplementedError("the kernels implement the flagship 2D U-Net only")
@@ -180,6 +190,6 @@ def make_score_fn(model, T: int) -> Callable:
 
     def score(xt, mask, mu, t, spk: Optional[torch.Tensor] = None):
         return score2d_fast(kw, xt, mask, mu, t, model.embed_speaker(spk),
-                            masked_stats=masked, eps=eps)
+                            masked_stats=masked, eps=eps, bf16=kernel_bf16)
 
     return score

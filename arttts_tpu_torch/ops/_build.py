@@ -70,6 +70,20 @@ SIGNATURES = {
     },
 }
 
+# launchers that also come in the bf16 mode (bf16 operands, float32 sums),
+# named `launcher(fn, True)`, with the same arguments
+BF16_LAUNCHERS = {
+    "resblock2d": ("conv3x3", "conv1x1", "attention_core"),
+    "updown": ("downsample3x3s2", "convt4x4s2"),
+    "mrf": ("mrf_round",),
+}
+
+
+def launcher(fn: str, bf16: bool) -> str:
+    """The name of launcher `fn` in the float32 or the bf16 mode."""
+    return fn + "_bf16" if bf16 else fn
+
+
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -122,7 +136,9 @@ def build_all() -> dict:
                 raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for name in SOURCES:
             lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in SIGNATURES[name].items():
+            sigs = dict(SIGNATURES[name])
+            sigs.update((launcher(fn, True), sigs[fn]) for fn in BF16_LAUNCHERS.get(name, ()))
+            for fn, argtypes in sigs.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             lib.arttts_error_string.argtypes = (ctypes.c_int,)

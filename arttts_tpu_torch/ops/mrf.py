@@ -25,6 +25,13 @@ The kernel reads each branch's weights in torch's Conv1d layout
 (C_out, C_in, k), as `stage_weights` stacks them: no copy or re-layout per
 call. It takes conv1 halos (k - 1) * dilation of up to `MAX_HALO` frames.
 
+`bf16=True` is the JAX kernel's opt-in bf16 mode (`mrf_stage`'s `bf16`,
+`mrf_pallas.py:441`): the weights and each leaky-ReLU'd conv input are
+rounded to bf16 (to nearest, ties to even; `:130-131`, `:315-319`) and every
+product is summed in float32; biases and FiLM stay float32. On the card it
+is a bf16 `mma.sync` mode of the same kernel. The port has no environment
+switch for it: the caller passes `bf16`.
+
 On CPU tensors `mrf_stage` runs the plain version; on CUDA tensors the
 kernel; anything else raises.
 """
@@ -39,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from arttts_tpu_torch.ops import _build
-from arttts_tpu_torch.ops.resblock2d import check_operand
+from arttts_tpu_torch.ops.resblock2d import check_operand, round_bf16
 
 LRELU_SLOPE = 0.1
 CHANNELS = (32, 64, 128)
@@ -89,6 +96,10 @@ def _conv1d(x, w, b, dilation):
     return F.conv1d(x, w, b, padding=dilation * (w.shape[-1] - 1) // 2, dilation=dilation)
 
 
+def _conv1d_bf16(x, w, b, dilation):
+    return _conv1d(round_bf16(x), round_bf16(w), b, dilation)
+
+
 def stage_with_products(x: torch.Tensor, weights: Sequence[MRFBranch],
                         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                         conv=_conv1d) -> torch.Tensor:
@@ -110,34 +121,38 @@ def stage_with_products(x: torch.Tensor, weights: Sequence[MRFBranch],
 
 
 def mrf_stage_plain(x: torch.Tensor, weights: Sequence[MRFBranch],
-                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    bf16: bool = False) -> torch.Tensor:
     """The plain PyTorch version of `mrf_stage` (same arguments)."""
     if x.is_cuda:
         mrf_stage_plain.cuda_calls += 1
-    return stage_with_products(x, weights, film)
+    return stage_with_products(x, weights, film, _conv1d_bf16 if bf16 else _conv1d)
 
 
 mrf_stage_plain.cuda_calls = 0
 
 
 def mrf_stage(x: torch.Tensor, weights: Sequence[MRFBranch],
-              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              bf16: bool = False) -> torch.Tensor:
     """One whole MRF stage: (B, C, T) -> (B, C, T).
 
     `weights`: one `MRFBranch` per branch (`stage_weights`). `film`: an
-    optional (a, b) pair, each (n_branches, n_rounds, B, C)."""
+    optional (a, b) pair, each (n_branches, n_rounds, B, C). `bf16`: the
+    JAX kernel's bf16 mode."""
     if x.device.type == "cpu":
-        return mrf_stage_plain(x, weights, film)
+        return mrf_stage_plain(x, weights, film, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage runs on cpu or cuda tensors, not {x.device}")
-    return _mrf_stage_cuda(_build.library("mrf"), x, weights, film)
+    return _mrf_stage_cuda(_build.library("mrf"), x, weights, film, bf16)
 
 
 mrf_stage.launches = 0
 mrf_stage.film_launches = 0  # the launches among them in FiLM mode
+mrf_stage.bf16_launches = 0  # ... and in the bf16 mode
 
 
-def _mrf_stage_cuda(lib, x, weights, film):
+def _mrf_stage_cuda(lib, x, weights, film, bf16=False):
     if x.ndim != 3:
         raise ValueError(f"x: want (B, C, T), got {tuple(x.shape)}")
     B, C, T = x.shape
@@ -172,6 +187,8 @@ def _mrf_stage_cuda(lib, x, weights, film):
     tmp = [torch.empty_like(x) for _ in range(min(2, n_rounds - 1))]
     mrf_stage.launches += 1
     mrf_stage.film_launches += film is not None
+    mrf_stage.bf16_launches += bool(bf16)
+    fn = _build.launcher("mrf_round", bf16)
     for j, br in enumerate(weights):
         k = br.w1.shape[-1]
         src = x
@@ -181,7 +198,7 @@ def _mrf_stage_cuda(lib, x, weights, film):
             fa = film[0][j, r] if film is not None else None
             fb = film[1][j, r] if film is not None else None
             scale = 1.0 / n_br if last and j == n_br - 1 else 1.0
-            _build.call(lib, "mrf_round", p(src), p(br.w1[r]), p(br.b1[r]), p(br.w2[r]),
+            _build.call(lib, fn, p(src), p(br.w1[r]), p(br.b1[r]), p(br.w2[r]),
                         p(br.b2[r]), p(fa), p(fb), p(dst), B, C, k, T, d,
                         int(last and j > 0), scale, s)
             src = dst

@@ -28,6 +28,14 @@ epilogue, reduced in a second, fixed-order pass (no atomics, so a call
 gives the same bits every run); normalisation, mish, the time embedding and
 the attention core are small kernels of their own.
 
+`bf16=True` is the JAX kernel's default mode (`resblock2d_packed` :925,
+`resblock2d_wide` :1116): every product rounds its operands to bf16 (to
+nearest, ties to even) and sums in float32, with the attention core's
+rounding points and the Rezero gain folded into the output projection
+before rounding (`rezero_attention_plain`); GroupNorm statistics, mish, the
+time embedding and the residual sum stay float32. On the card it is a bf16
+`mma.sync` mode of the same kernels (`csrc/resblock2d.cu`).
+
 `resblock2d` runs the plain version for tensors on the CPU and the kernels
 for tensors on a CUDA device; anything else raises.
 """
@@ -74,6 +82,12 @@ class AttnWeights:
     b_out: torch.Tensor
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> bf16 -> float32: to nearest, ties to even, as
+    `astype(jnp.bfloat16)` and the kernels' `cvt.rn` round."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
@@ -105,15 +119,41 @@ def group_norm(h, m, masked_stats: bool, eps: float, weight, bias):
     return hn.reshape(B, C, H, T) * weight[:, None, None] + bias[:, None, None]
 
 
-def rezero_attention_plain(x: torch.Tensor, a: AttnWeights) -> torch.Tensor:
+def attention_core_plain(qkv: torch.Tensor, bf16: bool = False):
+    """The attention between its two projections: qkv (B, 384, P) -> the
+    context (B, 4, 32, 32), indexed [head, d of k, e of v], and the output
+    (B, 128, P) = q ctx. The bf16 mode rounds where `_resblock_kernel`
+    rounds (`resblock2d_pallas.py:684-736`): k not at all, and its max,
+    exp(k - max) and their sum S in float32; ctx = bf16(bf16(v)^T
+    bf16(exp(k - max)) / S); out = bf16(q) ctx summed in float32."""
+    B, _, P = qkv.shape
+    q, k, v = qkv.reshape(B, 3, HEADS, DIM_HEAD, P).unbind(1)
+    if bf16:
+        ke = torch.exp(k - k.amax(dim=-1, keepdim=True))
+        ctx = torch.einsum("bhdn,bhen->bhde", round_bf16(ke), round_bf16(v))
+        ctx = round_bf16(ctx / ke.sum(dim=-1)[..., None])
+        q = round_bf16(q)
+    else:
+        ctx = torch.einsum("bhdn,bhen->bhde", torch.softmax(k, dim=-1), v)
+    return ctx, torch.einsum("bhde,bhdn->bhen", ctx, q).reshape(B, HEADS * DIM_HEAD, P)
+
+
+def rezero_attention_plain(x: torch.Tensor, a: AttnWeights,
+                           bf16: bool = False) -> torch.Tensor:
     """x + g * LinearAttention2d(x): per-channel softmax of k over all H*T
-    positions (padded frames included, as in the module), 4 heads of 32."""
+    positions (padded frames included, as in the module), 4 heads of 32. The
+    bf16 mode rounds x and W_qkv for the qkv product, then q, v, exp(k - max)
+    and ctx (`attention_core_plain`), and the output and g*W_o for the
+    projection: the Rezero gain folded into W_o and b_o before rounding, as
+    `pack_attn_params` folds it."""
     B, C, H, T = x.shape
-    qkv = torch.einsum("oc,bcp->bop", a.w_qkv, x.reshape(B, C, H * T))
-    q, k, v = qkv.reshape(B, 3, HEADS, DIM_HEAD, H * T).unbind(1)
-    k = torch.softmax(k, dim=-1)
-    ctx = torch.einsum("bhdn,bhen->bhde", k, v)
-    out = torch.einsum("bhde,bhdn->bhen", ctx, q).reshape(B, HEADS * DIM_HEAD, H, T)
+    r = round_bf16 if bf16 else (lambda t: t)
+    qkv = torch.einsum("oc,bcp->bop", r(a.w_qkv), r(x.reshape(B, C, H * T)))
+    _, out = attention_core_plain(qkv, bf16)
+    out = out.reshape(B, HEADS * DIM_HEAD, H, T)
+    if bf16:
+        proj = torch.einsum("oc,bchw->bohw", round_bf16(a.gain * a.w_out), round_bf16(out))
+        return x + proj + (a.gain * a.b_out)[:, None, None]
     proj = torch.einsum("oc,bchw->bohw", a.w_out, out) + a.b_out[:, None, None]
     return x + a.gain * proj
 
@@ -126,6 +166,14 @@ def _conv1x1(x, w, b):
     return torch.einsum("oc,bchw->bohw", w, x) + b[:, None, None]
 
 
+def _conv3x3_bf16(x, w, b):
+    return _conv3x3(round_bf16(x), round_bf16(w), b)
+
+
+def _conv1x1_bf16(x, w, b):
+    return _conv1x1(round_bf16(x), round_bf16(w), b)
+
+
 def resblock2d_plain(
     xs: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -135,20 +183,25 @@ def resblock2d_plain(
     masked_stats: bool,
     eps: float,
     attn: Optional[AttnWeights] = None,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """The plain PyTorch version of `resblock2d` (same arguments)."""
     if xs[0].is_cuda:
         resblock2d_plain.cuda_calls += 1
+    if bf16:
+        return block_with_products(xs, lengths, temb, w, masked_stats=masked_stats, eps=eps,
+                                   attn=attn, conv3x3=_conv3x3_bf16, conv1x1=_conv1x1_bf16,
+                                   bf16_attention=True)
     return block_with_products(xs, lengths, temb, w, masked_stats=masked_stats, eps=eps,
                                attn=attn)
 
 
 def block_with_products(xs, lengths, temb, w, *, masked_stats, eps, attn=None,
-                        conv3x3=_conv3x3, conv1x1=_conv1x1):
+                        conv3x3=_conv3x3, conv1x1=_conv1x1, bf16_attention=False):
     """`resblock2d_plain`'s computation with its block products given as
     functions (input, weight, bias) -> output: the two 3x3 convolutions
-    (zero padding 1) and the residual projection. The tests hand it
-    emulations of the kernels' arithmetic."""
+    (zero padding 1) and the residual projection, and the attention in
+    either mode. The tests hand it emulations of the kernels' arithmetic."""
     x = torch.cat(list(xs), dim=1) if len(xs) > 1 else xs[0]
     m = frame_mask(lengths, x.shape[-1], x.dtype)
     xm = x * m
@@ -161,7 +214,7 @@ def block_with_products(xs, lengths, temb, w, *, masked_stats, eps, attn=None,
     h = mish(group_norm(h, m, masked_stats, eps, w.gn2_w, w.gn2_b)) * m
     res = xm if w.w_res is None else conv1x1(xm, w.w_res, w.b_res)
     y = h + res
-    return y if attn is None else rezero_attention_plain(y, attn)
+    return y if attn is None else rezero_attention_plain(y, attn, bf16_attention)
 
 
 resblock2d_plain.cuda_calls = 0
@@ -186,27 +239,30 @@ def resblock2d(
     masked_stats: bool,
     eps: float,
     attn: Optional[AttnWeights] = None,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """One ResnetBlock2d (or lone Block2d) on (B, c_j, H, T) input chunks.
 
     lengths: (B,) int32 valid frames; temb: (B, c_out) rows of the block's
-    time-embedding Dense (None for a lone Block2d). Returns (B, c_out, H, T).
+    time-embedding Dense (None for a lone Block2d). `bf16`: the JAX kernel's
+    bf16 mode. Returns (B, c_out, H, T).
     """
     dev = xs[0].device
     if dev.type == "cpu":
         return resblock2d_plain(
-            xs, lengths, temb, w, masked_stats=masked_stats, eps=eps, attn=attn
+            xs, lengths, temb, w, masked_stats=masked_stats, eps=eps, attn=attn, bf16=bf16
         )
     if dev.type != "cuda":
         raise ValueError(f"resblock2d runs on cpu or cuda tensors, not {dev}")
     return _resblock2d_cuda(_build.library("resblock2d"), xs, lengths, temb, w,
-                            masked_stats, eps, attn)
+                            masked_stats, eps, attn, bf16)
 
 
 resblock2d.launches = 0
+resblock2d.bf16_launches = 0  # the launches among them in the bf16 mode
 
 
-def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
+def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn, bf16=False):
     if not 1 <= len(xs) <= 2:
         raise ValueError("resblock2d takes one or two input chunks")
     B, _, H, T = xs[0].shape
@@ -256,9 +312,12 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     part = torch.empty((B, c_out // 8, n_tiles, 2), device=x0.device)
     stats = torch.empty((B, GROUPS, 2), device=x0.device)
     resblock2d.launches += 1
+    resblock2d.bf16_launches += bool(bf16)
+
+    conv3x3_fn, conv1x1_fn = _build.launcher("conv3x3", bf16), _build.launcher("conv1x1", bf16)
 
     def conv_norm(inputs, chans, wt, bias):
-        _build.call(lib, "conv3x3", p(inputs[0]), chans[0], p(inputs[1]), chans[1],
+        _build.call(lib, conv3x3_fn, p(inputs[0]), chans[0], p(inputs[1]), chans[1],
                     p(lengths), p(wt), p(bias), p(h), p(part), B, H, T, c_out,
                     int(masked_stats), s)
         _build.call(lib, "gn_stats", p(part), p(lengths), p(stats), B, c_out, n_tiles,
@@ -270,7 +329,7 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
         return out
 
     def conv1x1(inputs, chans, lens, wt, bias, resid, gain, out):
-        _build.call(lib, "conv1x1", p(inputs[0]), chans[0], p(inputs[1]), chans[1], p(lens),
+        _build.call(lib, conv1x1_fn, p(inputs[0]), chans[0], p(inputs[1]), chans[1], p(lens),
                     p(wt), p(bias), p(resid), p(gain), p(out), B, out.shape[1], H, T, s)
         return out
 
@@ -289,14 +348,25 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn):
     if attn is None:
         return y
 
-    P = H * T
+    hd = HEADS * DIM_HEAD
+    qkv = conv1x1((y, None), (c_out, 0), None, attn.w_qkv, None, None, None, new(3 * hd))
+    _, ao = attention_core_cuda(lib, qkv.reshape(B, 3 * hd, H * T), bf16)
+    return conv1x1((ao.reshape(B, hd, H, T), None), (hd, 0), None, attn.w_out, attn.b_out, y,
+                   attn.gain, new(c_out))
+
+
+def attention_core_cuda(lib, qkv: torch.Tensor, bf16: bool = False):
+    """`attention_core_plain` on the card: qkv a contiguous (B, 384, P)
+    CUDA tensor. Returns (ctx, out)."""
+    B, _, P = qkv.shape
     hd = HEADS * DIM_HEAD
     n_chunks = lib.attn_chunks(P)
-    qkv = conv1x1((y, None), (c_out, 0), None, attn.w_qkv, None, None, None, new(3 * hd))
-    kpart = torch.empty((B, hd, n_chunks, 2), device=x0.device)
-    cpart = torch.empty((B, HEADS, n_chunks, DIM_HEAD, DIM_HEAD), device=x0.device)
-    ctx = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), device=x0.device)
-    ao = new(hd)
-    _build.call(lib, "attention_core", p(qkv), p(kpart), p(cpart), p(ctx), p(ao), B, P, s)
-    return conv1x1((ao, None), (hd, 0), None, attn.w_out, attn.b_out, y, attn.gain,
-                   new(c_out))
+    dev = qkv.device
+    kpart = torch.empty((B, hd, n_chunks, 2), device=dev)
+    cpart = torch.empty((B, HEADS, n_chunks, DIM_HEAD, DIM_HEAD), device=dev)
+    ctx = torch.empty((B, HEADS, DIM_HEAD, DIM_HEAD), device=dev)
+    out = torch.empty((B, hd, P), device=dev)
+    p = _build.ptr
+    _build.call(lib, _build.launcher("attention_core", bf16), p(qkv), p(kpart), p(cpart),
+                p(ctx), p(out), B, P, _build.stream(qkv))
+    return ctx, out

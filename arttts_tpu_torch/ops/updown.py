@@ -17,6 +17,11 @@ the top of `csrc/updown.cu` says how they are tiled and staged. The CUDA
 side takes input channels in multiples of 8 and output channels in
 multiples of 64.
 
+`bf16=True` is the JAX kernels' default mode (`updown_pallas.py:108`,
+`:249`): the masked input and the weights are rounded to bf16 (to nearest,
+ties to even) and every product is summed in float32; the bias stays
+float32. On the card it is a bf16 `mma.sync` mode of the same kernels.
+
 On CPU tensors the wrappers run the plain version; on CUDA tensors the
 kernel; anything else raises.
 """
@@ -27,26 +32,31 @@ import torch
 import torch.nn.functional as F
 
 from arttts_tpu_torch.ops import _build
-from arttts_tpu_torch.ops.resblock2d import check_operand, frame_mask
+from arttts_tpu_torch.ops.resblock2d import check_operand, frame_mask, round_bf16
 
 
-def downsample2d_plain(x, lengths, w, b):
+def _operand_pair(x, lengths, w, bf16):
+    """The products' operands: the masked input and the weight, rounded to
+    bf16 in the bf16 mode."""
+    xm = x * frame_mask(lengths, x.shape[-1], x.dtype)
+    return (round_bf16(xm), round_bf16(w)) if bf16 else (xm, w)
+
+
+def downsample2d_plain(x, lengths, w, b, bf16: bool = False):
     """Plain version of `downsample2d`."""
     if x.is_cuda:
         downsample2d_plain.cuda_calls += 1
-    return F.conv2d(x * frame_mask(lengths, x.shape[-1], x.dtype), w, b, stride=2, padding=1)
+    return F.conv2d(*_operand_pair(x, lengths, w, bf16), b, stride=2, padding=1)
 
 
 downsample2d_plain.cuda_calls = 0
 
 
-def conv_transpose2d_plain(x, lengths, w, b):
+def conv_transpose2d_plain(x, lengths, w, b, bf16: bool = False):
     """Plain version of `conv_transpose2d`."""
     if x.is_cuda:
         conv_transpose2d_plain.cuda_calls += 1
-    return F.conv_transpose2d(
-        x * frame_mask(lengths, x.shape[-1], x.dtype), w, b, stride=2, padding=1
-    )
+    return F.conv_transpose2d(*_operand_pair(x, lengths, w, bf16), b, stride=2, padding=1)
 
 
 conv_transpose2d_plain.cuda_calls = 0
@@ -70,50 +80,54 @@ def _operands(x, lengths, w, b, w_shape, c_out):
 
 
 def downsample2d(x: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+                 b: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """(B, Cin, H, T) -> (B, Cout, ceil(H/2), ceil(T/2)); w (Cout, Cin, 3, 3)."""
     if x.device.type == "cpu":
-        return downsample2d_plain(x, lengths, w, b)
+        return downsample2d_plain(x, lengths, w, b, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"downsample2d runs on cpu or cuda tensors, not {x.device}")
-    return _downsample2d_cuda(_build.library("updown"), x, lengths, w, b)
+    return _downsample2d_cuda(_build.library("updown"), x, lengths, w, b, bf16)
 
 
 downsample2d.launches = 0
+downsample2d.bf16_launches = 0  # the launches among them in the bf16 mode
 
 
-def _downsample2d_cuda(lib, x, lengths, w, b):
+def _downsample2d_cuda(lib, x, lengths, w, b, bf16=False):
     c_out, c_in = w.shape[0], x.shape[1]
     _check_channels(c_in, c_out)
     B, H, T = _operands(x, lengths, w, b, (c_out, c_in, 3, 3), c_out)
     out = torch.empty((B, c_out, (H + 1) // 2, (T + 1) // 2), device=x.device)
     downsample2d.launches += 1
+    downsample2d.bf16_launches += bool(bf16)
     p = _build.ptr
-    _build.call(lib, "downsample3x3s2", p(x), p(lengths), p(w), p(b), p(out), B, c_in,
-                c_out, H, T, _build.stream(x))
+    _build.call(lib, _build.launcher("downsample3x3s2", bf16), p(x), p(lengths), p(w), p(b),
+                p(out), B, c_in, c_out, H, T, _build.stream(x))
     return out
 
 
 def conv_transpose2d(x: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
+                     b: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """(B, Cin, H, T) -> (B, Cout, 2H, 2T); w torch layout (Cin, Cout, 4, 4)."""
     if x.device.type == "cpu":
-        return conv_transpose2d_plain(x, lengths, w, b)
+        return conv_transpose2d_plain(x, lengths, w, b, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"conv_transpose2d runs on cpu or cuda tensors, not {x.device}")
-    return _conv_transpose2d_cuda(_build.library("updown"), x, lengths, w, b)
+    return _conv_transpose2d_cuda(_build.library("updown"), x, lengths, w, b, bf16)
 
 
 conv_transpose2d.launches = 0
+conv_transpose2d.bf16_launches = 0
 
 
-def _conv_transpose2d_cuda(lib, x, lengths, w, b):
+def _conv_transpose2d_cuda(lib, x, lengths, w, b, bf16=False):
     c_in, c_out = w.shape[0], w.shape[1]
     _check_channels(c_in, c_out)
     B, H, T = _operands(x, lengths, w, b, (x.shape[1], c_out, 4, 4), c_out)
     out = torch.empty((B, c_out, 2 * H, 2 * T), device=x.device)
     conv_transpose2d.launches += 1
+    conv_transpose2d.bf16_launches += bool(bf16)
     p = _build.ptr
-    _build.call(lib, "convt4x4s2", p(x), p(lengths), p(w), p(b), p(out), B, c_in, c_out,
-                H, T, _build.stream(x))
+    _build.call(lib, _build.launcher("convt4x4s2", bf16), p(x), p(lengths), p(w), p(b), p(out), B,
+                c_in, c_out, H, T, _build.stream(x))
     return out

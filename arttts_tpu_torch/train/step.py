@@ -50,6 +50,18 @@ def per_submodule_clip(model: torch.nn.Module, max_norm: float) -> None:
                 g.mul_(scale)
 
 
+def check_trainable(model_config) -> None:
+    """Raise for a configuration the port does not train yet: a 2D or
+    preblock decoder with `compute_dtype="bfloat16"` (bf16 training,
+    ROADMAP A6; the port serves that configuration, on the module path). The
+    1D decoder ignores `compute_dtype`, as in the JAX package."""
+    d = model_config.decoder
+    if d.compute_dtype != "float32" and d.kind in ("unet2d", "unet1d_preblock"):
+        raise NotImplementedError(
+            f"training a decoder with compute_dtype={d.compute_dtype!r} is not ported yet "
+            "(ROADMAP A6, bf16 training); the port serves it, and trains float32 decoders")
+
+
 def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.Adam:
     """Adam with `optax.adam`'s defaults (betas 0.9, 0.999; eps 1e-8)."""
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
@@ -71,6 +83,7 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
     Puts the model in training mode. Returns the loss parts, `total_loss`
     and `grad_norm` (the norm of all gradients before the clip), as device
     scalars."""
+    check_trainable(model.config)
     model.train()
     pinned = None
     if "pinned_t" in batch:

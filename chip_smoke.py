@@ -39,6 +39,19 @@ fatal on failure (exit code 1, no result line):
    time for their convolutions (K1's 3x3 ones, K4's 18 per stage) as a
    yardstick of one part, and a line sums K1's calls into the kernel
    table's rows 1 and 2 per request;
+3b. bf16: the bf16 modes of K1-K4 (`bf16=True`, the JAX kernels' bf16
+   dots: operands rounded to bf16, float32 sums) against their plain bf16
+   versions at the shapes of phase 3 (K1's 13 call sites and its padded,
+   unmasked, two-utterance and v6 cases; K2/K3 at both boundaries and v6's;
+   K4's three stages and FiLM), each within its TOL_KERNEL_BF16 and within
+   half of the plain version's own bf16-vs-float32 distance (0.75 for a
+   block with the attention, whose core is held alone at its rounding
+   points: its context bf16 and equal to the plain one in 99% of its
+   entries, q ctx to float32 accuracy; at P = 1024 also within half the
+   core's distance, with controls of unrounded v and exp(k - max) that
+   must differ), the same bits twice; each timed (events, device ms)
+   beside its bf16 bound (dense bf16 peak) and the float32 kernel's time,
+   summed per request by the kernel table's rows;
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding), and the v6 estimator with the
    speaker plane at 16x256 (masked statistics, 181 valid frames; the module
@@ -54,10 +67,19 @@ fatal on failure (exit code 1, no result line):
    with every launch counter set to 0 just before and read just after:
    all five kernels must have run as often as the path calls them, and no
    plain version on the card;
+6b. the same four requests with `kernel_bf16=True`: the same launch
+   counts, every K1-K4 launch in the bf16 mode, no plain version on the
+   card; the bench request's distance from the float32 one with the same
+   draws; phase 5's request in bf16 on the card against the CPU's plain
+   bf16 versions within TOL_WAV_BF16, which must lie below the CPU's own
+   bf16-vs-float32 distance there and below the card's float32 request's;
 7. one more bench-shape request under `torch.profiler`: kernel time by
    name and by the port's kernel it belongs to, K1's time by part (3x3
    conv, 1x1 products, GroupNorm statistics and application, attention
    core) with launches per evaluation, and the card's idle share;
+7b. the bench-shape request and a B=4 decode at bucket 384 (10 Euler
+   steps) under the profiler, float32 then bf16: kernel time by family,
+   device ms an evaluation, idle share;
 8. the SPARC articulatory vocoder at full width from a seed, through
    `vocode_sparc` (windowed and two-placement tracks), against
    `vocode_chunked` over its module path, with K4's FiLM mode and K5
@@ -72,6 +94,10 @@ fatal on failure (exit code 1, no result line):
    often as the path calls them; walls and RTF per utterance;
 8c. card_vs_cpu_artic: the 120-frame utterance with 4 steps on the card
    against the same on the CPU (plain versions), temperature 1e6;
+8d. bf16_decoder: v2 with `compute_dtype="bfloat16"` (the module path in
+   bf16, as the JAX package serves it) decodes phase 5's request on the
+   card and on the CPU, within TOL_DEC_BF16 (below the same two
+   distances as in 6b); K1-K3 launch no time;
 9. training: the full-width v2 preset from seed 0 trains one epoch through
    `train/trainer.py:Trainer` on a seeded LJSpeech-shaped synthetic set
    (48 utterances, three batches of 16, and 16 for validation), with a
@@ -110,8 +136,9 @@ fatal on failure (exit code 1, no result line):
    (device time, launches, idle share). Then one `train_step` of v1 and of
    v6 (B=2, pinned draws, dropout off) on the card against the CPU, as 9b.
 
-Prints JSON lines; the `{"kernels": [...]}` line and the card line come
-before the last, which is `{"ok": true, "device": {...}}`.
+Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
+entry each) and the card line come before the last, which is
+`{"ok": true, "device": {...}}`.
 """
 
 import copy
@@ -131,11 +158,39 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL_KERNEL = 1e-4  # max |kernel - plain| <= TOL * max(1, max |plain|)
+# The bf16 modes (phase 3b), the same measure, one tolerance a kernel: the
+# kernel and its plain bf16 version sum in other orders, and a float32
+# intermediate within an ulp of a bf16 rounding boundary is rounded apart.
+# Each is set from the largest error phase 3b read in two runs on an
+# NVIDIA H100 80GB HBM3 at 700 W: K1 5.1e-4 without the attention and
+# 2.35e-3 with it (one flipped entry of the attention's context moves a
+# column at every position), K2/K3 2.3e-6, K4 8.7e-4.
+TOL_KERNEL_BF16 = {"resblock2d": 1e-3, "resblock2d+attn": 3e-3, "downsample2d": 1e-5,
+                   "conv_transpose2d": 1e-5, "mrf_stage": 1.5e-3}
+# ... and the mode: max |kernel - plain bf16| at most this share of max
+# |plain bf16 - plain float32| on the same inputs, the CPU tests' rule
+# against the JAX kernels (a float32 or one-pass TF32 kernel reads about
+# 1, one that truncates or rounds only some operands more than half). A
+# whole block with the attention reads up to 0.61 on the card from the
+# context's flips, so it is held to 0.75, and its attention core, fed the
+# same qkv on both sides, to its rounding points (`attn_core_check`).
+BF16_GAP_SHARE = 0.5
+BF16_GAP_SHARE_ATTN_BLOCK = 0.75
 TOL_SCORE = 1e-3
 TOL_VOC = 1e-3  # fast vocoder against its module path, on the wav in [-1, 1]
 TOL_WAV = 2e-3
+# phase 6b: phase 5's 4-step request with `kernel_bf16` on the card against
+# the CPU's plain bf16 versions (wav in [-1, 1]); phase 8d: the bf16 decoder
+# (module path), card against CPU. The bf16 function is chaotic at the ulp
+# level (tests/test_torch_bf16.py): on an NVIDIA H100 80GB HBM3 at 700 W they
+# read 5.41e-4 and 8.60e-4, against 7.54e-4 and 1.22e-3 between the bf16
+# and the float32 request. Each tolerance must stay below that distance in
+# the run, and the float32 request must fail it.
+TOL_WAV_BF16 = 6.5e-4
+TOL_DEC_BF16 = 1.05e-3
 N_STEPS = 50
 # K6's floor of dependent steps: per frame a max and an add (forward) and a
 # bit test and a decrement (backtrace), each at least 4 cycles, at the
@@ -939,6 +994,82 @@ def main():
 
     cases = []
     mas_cases = []
+    cases16 = []  # phase 3b
+
+    def bf16_check(kernel, case, lengths, run16, plain16, plain32, flops, nbytes, key, timed,
+                   n=10, attn=False, core=None):
+        """Phase 3b's record of one case: the bf16 kernel against its plain
+        bf16 version, within the kernel's tolerance and within a share of
+        the plain version's own bf16-vs-float32 distance on the same inputs
+        (the mode and its rounding points), a second run's bits, event and
+        device ms, and the bf16 bound (operations over the dense bf16 peak,
+        or bytes). `core`: the attention core's own record, when fused."""
+        got, ref = run16(), plain16()
+        torch.cuda.synchronize()
+        if got.shape != ref.shape:
+            fail(f"bf16 kernel output shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
+        if not torch.isfinite(got).all():
+            fail("bf16 kernel output is not finite")
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        gap = (ref - plain32()).abs().max().item()
+        same = bool(torch.equal(got, run16()))
+        del got, ref
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ref = next((c for c in cases if c["kernel"] == kernel and c["case"] == case
+                    and c.get("lengths") == lengths), {})
+        cases16.append(dict(
+            kernel=kernel, case=case, lengths=lengths, shape=ref.get("shape"),
+            in_eval=ref.get("in_eval", False), attn=attn,
+            artic=ref.get("artic", False), max_abs_err=err, max_abs_ref=scale,
+            max_rel_err=err / max(1.0, scale), tol=TOL_KERNEL_BF16[kernel + "+attn" * attn],
+            same_bits_twice=same, plain_bf16_vs_f32=gap, gap_share=err / gap,
+            max_gap_share=BF16_GAP_SHARE_ATTN_BLOCK if attn else BF16_GAP_SHARE, attn_core=core,
+            ms=cuda_ms(run16, n), device_ms_per_call=device_ms(run16, key, n) if timed else None,
+            bound_ms=b_ms, bound_by=b_by, f32_ms=ref.get("ms"),
+            f32_device_ms=ref.get("device_ms_per_call"), f32_bound_ms=ref.get("bound_ms"),
+            library_ms=ref.get("library_ms"), library_conv_ms=ref.get("library_conv_ms")))
+
+    def ordered_bf16(t):
+        """bf16 values as integers in their order: neighbours differ by 1."""
+        i = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    def attn_core_check(B, P, a, small=False):
+        """K1's attention core alone in the bf16 mode, the same qkv on both
+        sides (the bf16 product of a block-sized input). Its rounding
+        points: the kernel's context is bf16 (rounded after the division
+        by S) and equals the plain one but for at most 1% of its entries
+        (a float32 sum of P terms that cancel lands on the other side of a
+        rounding boundary), while a context from unrounded v or unrounded
+        exp(k - max), computed here as controls, must differ in more (14-29%
+        of them on the CPU at P 1,024 and 61,440); its q ctx is bf16(q)
+        times its context to float32 accuracy. `small`: a P whose sums keep
+        the flips rare, where the output must also lie within half the
+        core's own bf16-vs-float32 distance."""
+        y = rnd(B, a.w_qkv.shape[1], P, scale=3.0)
+        qkv = torch.einsum("oc,bcp->bop", K1.round_bf16(a.w_qkv), K1.round_bf16(y)).contiguous()
+        ctx_k, out_k = K1.attention_core_cuda(k1_lib, qkv, bf16=True)
+        ctx_p, out_p = K1.attention_core_plain(qkv, bf16=True)
+        out_32 = K1.attention_core_plain(qkv)[1]
+        q, k, v = qkv.reshape(B, 3, K1.HEADS, K1.DIM_HEAD, P).unbind(1)
+        ke = torch.exp(k - k.amax(dim=-1, keepdim=True))
+        S = ke.sum(dim=-1)[..., None]
+        ctx_of = lambda kk, vv: K1.round_bf16(torch.einsum("bhdn,bhen->bhde", kk, vv) / S)  # noqa
+        flips = lambda c: float((c != ctx_p).float().mean())  # noqa: E731
+        out_on_k = torch.einsum("bhde,bhdn->bhen", ctx_k, K1.round_bf16(q)).reshape(out_k.shape)
+        err, gap = (out_k - out_p).abs().max().item(), (out_p - out_32).abs().max().item()
+        r = dict(B=B, P=P, ctx_is_bf16=bool(torch.equal(K1.round_bf16(ctx_k), ctx_k)),
+                 ctx_flipped_share=flips(ctx_k),
+                 control_v_unrounded=flips(ctx_of(K1.round_bf16(ke), v)),
+                 control_exp_unrounded=flips(ctx_of(ke, K1.round_bf16(v))),
+                 q_ctx_rel_err=((out_k - out_on_k).abs().max()
+                                / out_on_k.abs().max().clamp(min=1.0)).item(),
+                 max_abs_err=err, plain_bf16_vs_f32=gap, gap_share=err / gap)
+        r["ok"] = (r["ctx_is_bf16"] and r["ctx_flipped_share"] <= 0.01
+                   and min(r["control_v_unrounded"], r["control_exp_unrounded"]) > 0.01
+                   and r["q_ctx_rel_err"] <= TOL_KERNEL
+                   and (not small or r["gap_share"] <= BF16_GAP_SHARE))
+        return r
 
     def k6_case(name, t_xs, t_ys, T_x, T_y, integer=False, in_step=False):
         B = len(t_xs)
@@ -990,7 +1121,7 @@ def main():
     k1_lib = _build.library("resblock2d")
 
     def k1_case(name, cs, c_out, H, T, lengths, attn=False, masked=True, block_only=False,
-                in_eval=True, artic=False):
+                in_eval=True, artic=False, bf16=False):
         B = len(lengths)
         xs = [rnd(B, c, H, T) for c in cs]
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1000,9 +1131,6 @@ def main():
         kw = dict(masked_stats=masked, eps=1e-6, attn=a)
         kern = lambda: K1.resblock2d(xs, lens, temb, w, **kw)  # noqa: E731
         plain = lambda: K1.resblock2d_plain(xs, lens, temb, w, **kw)  # noqa: E731
-        err, scale = compare(kern, plain)
-        again = kern()
-        same_bits = bool(torch.equal(kern(), again))
         c_in, P = sum(cs), B * H * T
         flops = 2 * 9 * c_in * c_out * P
         if not block_only:
@@ -1013,6 +1141,15 @@ def main():
         if a is not None:
             wbytes += sum(t.numel() for t in vars(a).values())
         nbytes = 4 * (c_in * P + c_out * P + wbytes + (B * c_out if temb is not None else 0))
+        if bf16:
+            kw16 = dict(kw, bf16=True)
+            return bf16_check(
+                "resblock2d", name, lengths, lambda: K1.resblock2d(xs, lens, temb, w, **kw16),
+                lambda: K1.resblock2d_plain(xs, lens, temb, w, **kw16), plain, flops, nbytes,
+                None, in_eval or artic, attn=attn, core=attn_core_check(B, P, a) if attn else None)
+        err, scale = compare(kern, plain)
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
         # the products run on the tensor cores in three TF32 passes (3xTF32)
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         f32_ms, _ = bound(flops, nbytes)
@@ -1041,7 +1178,7 @@ def main():
                           library_conv_ms=cuda_ms(lib_conv) if timed else None,
                           library_conv_device_ms=device_ms(lib_conv) if timed else None))
 
-    def updown_case(kernel, cin, H, T, lengths, artic=False):
+    def updown_case(kernel, cin, H, T, lengths, artic=False, bf16=False):
         B = len(lengths)
         x = rnd(B, cin, H, T)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1069,18 +1206,25 @@ def main():
             flops = 2 * 4 * cin * out_n  # 4 of the 16 taps reach each output
             # 64 channels x an input tile of 2 x 16 a block
             blocks = math.ceil(H / 2) * math.ceil(T / 16) * (cin // 64) * B
+        nbytes = 4 * (B * cin * H * T + out_n + w.numel() + b.numel())
+        full = lengths == [T]
+        name = "downsample_kernel" if kernel == "downsample2d" else "convt_kernel"
+        if bf16:
+            fn = getattr(updown, kernel)
+            return bf16_check(kernel, f"C={cin} {H}x{T}", lengths,
+                              lambda: fn(x, lens, w, b, bf16=True),
+                              lambda: getattr(updown, kernel + "_plain")(x, lens, w, b,
+                                                                         bf16=True),
+                              plain, flops, nbytes, name, full or artic)
         err, scale = compare(kern, plain)
         again = kern()
         same_bits = bool(torch.equal(kern(), again))
-        nbytes = 4 * (B * cin * H * T + out_n + w.numel() + b.numel())
         # the tensor-core route: three TF32 passes per product (3xTF32)
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         f32_ms, _ = bound(flops, nbytes)
         # the main path's calls (B=1, unpadded; the v2 evaluation's unless
         # `artic`); there the library call is the same function
-        full = lengths == [T]
         lib_ms = cuda_ms(lib) if full else None
-        name = "downsample_kernel" if kernel == "downsample2d" else "convt_kernel"
         cases.append(dict(kernel=kernel, case=f"C={cin} {H}x{T}", shape=[B, cin, H, T],
                           lengths=lengths, in_eval=full and not artic, artic=artic,
                           max_abs_err=err, max_abs_ref=scale,
@@ -1093,7 +1237,7 @@ def main():
 
     k4_lib = _build.library("mrf")
 
-    def k4_case(name, B, C, T, ks=(3, 7, 11), film=False, in_eval=False, n=5):
+    def k4_case(name, B, C, T, ks=(3, 7, 11), film=False, in_eval=False, n=5, bf16=False):
         w = tuple(K4.MRFBranch(w1=rnd(3, C, C, k, scale=(k * C) ** -0.5), b1=rnd(3, C, scale=0.1),
                                w2=rnd(3, C, C, k, scale=(k * C) ** -0.5), b2=rnd(3, C, scale=0.1),
                                dilations=(1, 3, 5)) for k in ks)
@@ -1102,12 +1246,16 @@ def main():
              if film else None)
         kern = lambda: K4.mrf_stage(x, w, f)  # noqa: E731
         plain = lambda: K4.mrf_stage_plain(x, w, f)  # noqa: E731
-        err, scale = compare(kern, plain)
-        again = kern()
-        same_bits = bool(torch.equal(kern(), again))
         flops = 2 * 2 * C * C * B * T * 3 * sum(ks)  # two convs per round, 3 rounds
         wbytes = sum(t.numel() for br in w for t in (br.w1, br.b1, br.w2, br.b2))
         nbytes = 4 * (2 * B * C * T + wbytes + (2 * f[0].numel() if film else 0))
+        if bf16:
+            return bf16_check("mrf_stage", name, None, lambda: K4.mrf_stage(x, w, f, bf16=True),
+                              lambda: K4.mrf_stage_plain(x, w, f, bf16=True), plain, flops,
+                              nbytes, "mrf_round_kernel", True, n)
+        err, scale = compare(kern, plain)
+        again = kern()
+        same_bits = bool(torch.equal(kern(), again))
         # the products run on the tensor cores in three TF32 passes (3xTF32)
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         f32_ms, _ = bound(flops, nbytes)
@@ -1163,6 +1311,15 @@ def main():
                           library_ms=cuda_ms(lib),
                           library_device_ms=device_ms(lib) if in_eval else None))
 
+    replay = []  # phase 3's K1-K3 cases, run again in the bf16 mode by phase 3b
+
+    def recorded(case_fn):
+        def call(*args, **kw):
+            replay.append((case_fn, args, kw))
+            return case_fn(*args, **kw)
+        return call
+
+    k1_case, updown_case = recorded(k1_case), recorded(updown_case)
     # the 13 K1 calls of one score evaluation at 80x768 (masked statistics:
     # bucket 768 is one where the JAX package runs its TPU kernels)
     k1_case("ResnetBlock2d_0", (2,), 64, 80, 768, [768])
@@ -1315,6 +1472,60 @@ def main():
              library_ms=c["library_ms"], max_abs_err=c["max_abs_err"],
              same_bits_twice=c["same_bits_twice"])
         for c in cases if c.get("artic")]}})
+
+    # ---- 3b. bf16: the bf16 modes of K1-K4 against their plain bf16 versions --
+    # every K1-K3 case of phase 3 (new draws): K1's 13 call sites of an 80x768
+    # evaluation, its padded, unmasked and two-utterance cases and v6's
+    # 16 / 8 / 4-row ones; K2 and K3 at both boundaries and v6's; K4's three
+    # stages and FiLM. Each within its TOL_KERNEL_BF16 and its share of the
+    # plain version's bf16-vs-float32 distance, the same bits twice; each
+    # fused attention's core alone at its rounding points.
+    t3b = time.perf_counter()
+    for case_fn, args, kw in replay:
+        case_fn(*args, **kw, bf16=True)
+    k4_case("C=128 stage", 1, 128, 768 * 64, bf16=True)
+    k4_case("C=64 stage", 1, 64, 768 * 128, bf16=True)
+    k4_case("C=32 stage", 1, 32, 768 * 256, bf16=True)
+    k4_case("FiLM C=128, SPARC window batch", 8, 128, 576 * 64, film=True, n=2, bf16=True)
+    core_small = attn_core_check(2, 1024, attn_w(64), small=True)
+    emit({"bf16_attention_core": core_small})
+    if not core_small["ok"]:
+        fail(f"bf16: K1's attention core does not round where the plain version does: "
+             f"{core_small}")
+    for c in cases16:
+        c["ok"] = (c["max_rel_err"] <= c["tol"] and c["same_bits_twice"]
+                   and c["gap_share"] <= c["max_gap_share"]
+                   and (c["attn_core"] is None or c["attn_core"]["ok"]))
+        emit({"bf16_case": c})
+    bad = [f"{c['kernel']} {c['case']}" for c in cases16 if not c["ok"]]
+    if bad:
+        fail(f"bf16: a kernel disagrees with its plain bf16 version, differs between two "
+             f"runs, does not round where it does or its attention core does not: {bad}")
+    # per bench-shape request (50 evaluations; the vocoder's three stages once),
+    # by the kernel table's rows: K1 row 1 (80 rows) and row 2, K2/K3 by width, K4
+    rows16 = {}
+    for c in cases16:
+        if not c["in_eval"]:
+            continue
+        if c["kernel"] == "resblock2d":
+            row = 1 if c["shape"][3] == 80 else 2  # resblock2d_packed: the 80-row calls
+        elif c["kernel"] == "mrf_stage":
+            row = 7
+        else:
+            row = {("downsample2d", 64): 3, ("downsample2d", 128): 4,
+                   ("conv_transpose2d", 128): 5,
+                   ("conv_transpose2d", 64): 6}[(c["kernel"], c["shape"][1])]
+        k = 1 if row == 7 else N_STEPS
+        r = rows16.setdefault(row, dict(kernel=c["kernel"], calls_per_evaluation=0, ms=0.0,
+                                        device_ms=0.0, bound_ms=0.0, f32_ms=0.0,
+                                        f32_device_ms=0.0))
+        r["calls_per_evaluation"] += 1
+        for key in ("ms", "bound_ms", "f32_ms"):
+            r[key] += k * c[key]
+        r["device_ms"] += k * c["device_ms_per_call"]
+        r["f32_device_ms"] += k * (c["f32_device_ms"] or 0.0)
+    emit({"bf16_rows_per_request": {"card": card, "steps": N_STEPS, "rows": rows16,
+                                    "phase_s": time.perf_counter() - t3b}})
 
     # ---- 4. the score network: kernel path against the module path --------
     from arttts_tpu_torch.core.config import get_preset
@@ -1498,6 +1709,83 @@ def main():
     if any(plain_on_card.values()):
         fail(f"a plain version ran on the card in the main path: {plain_on_card}")
 
+    # ---- 6b. the main path in bf16: the same four requests with kernel_bf16 ----
+    t6b = time.perf_counter()
+    counters16 = counters[:4]  # K1-K4 have a bf16 mode; K5 has none
+    for f in counters + plains:
+        setattr(f, "launches" if f in counters else "cuda_calls", 0)
+    for f in counters16:
+        f.bf16_launches = 0
+    GradLogPEstimator2d.cuda_calls = 0
+    gen16 = torch.Generator(device=dev).manual_seed(2)
+    served16 = []
+    for (kind, n), x in zip(requests, texts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "serve":
+            wav, yl, bucket = sampler.serve_text_to_wav(
+                model, vocoder, gen16, x, torch.tensor([n]), n_timesteps=N_STEPS, device=dev,
+                kernel_bf16=True)
+        else:
+            bucket, bench_state = 768, gen16.get_state()
+            wav, yl = sampler.synthesize_to_wav(
+                model, vocoder, gen16, x, torch.tensor([n]), n_timesteps=N_STEPS,
+                max_frames=bucket, x_durations=torch.full((1, n), bucket / n), device=dev,
+                kernel_bf16=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = (tuple(wav.shape) == (1, bucket * hop, 1) and bool(torch.isfinite(wav).all())
+              and 1 <= int(yl[0]) <= bucket and float(wav.abs().max()) <= 1.0)
+        served16.append(dict(entry=("serve_text_to_wav" if kind == "serve"
+                                    else "synthesize_to_wav"), T_x=n, bucket=bucket,
+                             frames=int(yl[0]), steps=N_STEPS, wall_s=wall,
+                             rtf=wall / (bucket * hop / sr), ok=ok))
+    launches16 = {f.__name__: f.launches for f in counters}
+    bf16_launches = {f.__name__: f.bf16_launches for f in counters16}
+    plain16 = {f.__name__: f.cuda_calls for f in plains}
+    plain16["GradLogPEstimator2d"] = GradLogPEstimator2d.cuda_calls
+    # the bench request in float32 from the same draws: how far the mode moves the wav
+    gen32 = torch.Generator(device=dev)
+    gen32.set_state(bench_state)
+    x, n = texts[-1], requests[-1][1]
+    wav32, _ = sampler.synthesize_to_wav(model, vocoder, gen32, x, torch.tensor([n]),
+                                         n_timesteps=N_STEPS, max_frames=768,
+                                         x_durations=torch.full((1, n), 768 / n), device=dev)
+    bf16_vs_f32 = (wav - wav32).abs().max().item()
+    # phase 5's request (same weights, temperature 1e6: z = mu) with kernel_bf16,
+    # the card's kernels against the CPU's plain bf16 versions
+    w16_gpu, _ = sampler.synthesize_to_wav(
+        model, vocoder, torch.Generator(device=dev).manual_seed(0), x_small, torch.tensor([30]),
+        device=dev, kernel_bf16=True, **small_kw)
+    w16_cpu, _ = sampler.synthesize_to_wav(
+        cpu_model, cpu_voc, torch.Generator().manual_seed(0), x_small, torch.tensor([30]),
+        device="cpu", kernel_bf16=True, **small_kw)
+    err16 = (w16_gpu.cpu() - w16_cpu).abs().max().item()
+    # the check must tell the modes apart: its tolerance below the CPU's own
+    # bf16-vs-float32 distance on this request, and the card's float32
+    # request outside it
+    cpu_check = dict(steps=small_kw["n_timesteps"], max_abs_err=err16, tol=TOL_WAV_BF16,
+                     vs_f32_request=(w16_gpu - wav_gpu).abs().max().item(),
+                     cpu_bf16_vs_f32=(w16_cpu - wav_cpu).abs().max().item(),
+                     f32_request_vs_cpu_bf16=(wav_gpu.cpu() - w16_cpu).abs().max().item())
+    cpu_check["ok"] = (bool(torch.isfinite(w16_gpu).all()) and err16 <= TOL_WAV_BF16
+                       < min(cpu_check["cpu_bf16_vs_f32"], cpu_check["f32_request_vs_cpu_bf16"]))
+    emit({"main_path_bf16": {"card": card, "requests": served16, "launches": launches16,
+                             "bf16_launches": bf16_launches, "plain_calls_on_card": plain16,
+                             "bench_wav_bf16_vs_f32_max_abs": bf16_vs_f32,
+                             "card_vs_cpu_request": cpu_check,
+                             "phase_s": time.perf_counter() - t6b}})
+    if not all(r["ok"] for r in served16):
+        fail("bf16: a served request gave a wrong or non-finite waveform")
+    if launches16 != want or bf16_launches != {k: want[k] for k in bf16_launches}:
+        fail(f"bf16: launch counts {launches16}, in the bf16 mode {bf16_launches}, "
+             f"expected {want} and all of K1-K4's in the bf16 mode")
+    if any(plain16.values()):
+        fail(f"bf16: a plain version ran on the card in the main path: {plain16}")
+    if not cpu_check["ok"]:
+        fail(f"bf16: the request on the card disagrees with the CPU's plain bf16 versions: "
+             f"{cpu_check}")
+
     # ---- 7. where the time goes: one bench-shape request under the profiler --
     x, n = texts[-1], requests[-1][1]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1549,6 +1837,47 @@ def main():
                                            if calls[f]},
                     "kernels_by_time": [{"name": k[:90], "ms": ms, "count": c}
                                         for k, (ms, c) in top]}})
+
+    # ---- 7b. where the time goes in bf16: the bench-shape request and a B=4
+    # decode at bucket 384 under the profiler, float32 then bf16 ------------
+    t7b = time.perf_counter()
+    x, n = texts[-1], requests[-1][1]
+
+    def profiled(run):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _, busy, fam, calls = kernel_time(prof)
+        return dict(wall_ms_under_profiler=wall, device_kernel_ms=busy,
+                    idle_share=1 - busy / wall, kernel_ms_by_family=fam,
+                    launches_by_family=calls)
+
+    B4, T4, steps4 = 4, 384, 10
+    z4, mu4 = rnd(B4, T4, F_), rnd(B4, T4, F_)
+    mask4 = (torch.arange(T4, device=dev)[None, :]
+             < torch.tensor([384, 350, 301, 256], device=dev)[:, None]).float()[..., None]
+    trace16 = {}
+    for mode, kb in (("float32", False), ("bf16", True)):
+        req = profiled(lambda: sampler.synthesize_to_wav(
+            model, vocoder, torch.Generator(device=dev).manual_seed(3), x, torch.tensor([n]),
+            n_timesteps=N_STEPS, max_frames=768, x_durations=torch.full((1, n), 768 / n),
+            device=dev, kernel_bf16=kb))
+        sampler.reverse_diffusion(model, z4, mask4, mu4, 2, kernel_bf16=kb)  # warm-up
+        dec = profiled(lambda: sampler.reverse_diffusion(model, z4, mask4, mu4, steps4,
+                                                         kernel_bf16=kb))
+        fam = dec["kernel_ms_by_family"]
+        trace16[mode] = dict(
+            request=req, k1_k4_device_ms_per_request=sum(
+                req["kernel_ms_by_family"][f] for f in list(families)[:4]),
+            b4_decode=dict(dec, evaluations=steps4, device_ms_per_evaluation=dec[
+                "device_kernel_ms"] / steps4, k1_k3_device_ms_per_evaluation=sum(
+                    fam[f] for f in list(families)[:3]) / steps4,
+                wall_ms_per_evaluation=dec["wall_ms_under_profiler"] / steps4))
+    emit({"trace_bf16": {"card": card, "request": "bench shape, 768 frames, 50 steps",
+                         "b4_decode": f"B={B4}, bucket {T4}, {steps4} Euler steps",
+                         "modes": trace16, "phase_s": time.perf_counter() - t7b}})
 
     # ---- 8. the SPARC articulatory vocoder ------------------------------------
     from arttts_tpu_torch.infer.chunked import vocode_chunked, vocode_sparc
@@ -1738,6 +2067,50 @@ def main():
     if not artic_check["ok"]:
         fail("the articulatory artifact on the card disagrees with the CPU plain path")
     del cpu_artic
+
+    # ---- 8d. the bf16 decoder: v2 with compute_dtype="bfloat16", module path ----
+    t8d = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                 compute_dtype="bfloat16"))
+    dec16 = {}
+    for where, d, voc in (("card", dev, vocoder), ("cpu", "cpu", cpu_voc)):
+        m16 = build_model(cfg16, device=d)
+        m16.load_state_dict(model.state_dict())
+        for f in counters + plains:
+            setattr(f, "launches" if f in counters else "cuda_calls", 0)
+        GradLogPEstimator2d.cuda_calls = 0
+        gen_d = torch.Generator(device=d).manual_seed(0)
+        t0 = time.perf_counter()
+        w16, yl16 = sampler.synthesize_to_wav(m16, voc, gen_d, x_small, torch.tensor([30]),
+                                              device=d, **small_kw)
+        if where == "card":
+            torch.cuda.synchronize()
+        dec16[where] = dict(wav=w16.cpu(), frames=int(yl16[0]), wall_s=time.perf_counter() - t0,
+                            launches={f.__name__: f.launches for f in counters},
+                            module_forwards_on_card=GradLogPEstimator2d.cuda_calls)
+        del m16
+    err_dec = (dec16["card"]["wav"] - dec16["cpu"]["wav"]).abs().max().item()
+    # as in 6b: the tolerance below the CPU's bf16-vs-float32 distance, and
+    # the card's float32 request outside it
+    dec_vs = dict(cpu_bf16_vs_f32=(dec16["cpu"]["wav"] - wav_cpu).abs().max().item(),
+                  f32_request_vs_cpu_bf16=(wav_gpu.cpu() - dec16["cpu"]["wav"]).abs().max().item())
+    dec_check = dict(
+        frames=dec16["card"]["frames"], steps=small_kw["n_timesteps"], max_abs_err=err_dec,
+        tol=TOL_DEC_BF16, vs_f32_request=(dec16["card"]["wav"] - wav_gpu.cpu()).abs().max().item(),
+        **dec_vs, launches_card=dec16["card"]["launches"],
+        module_forwards_on_card=dec16["card"]["module_forwards_on_card"],
+        walls_s={k: v["wall_s"] for k, v in dec16.items()},
+        ok=bool(torch.isfinite(dec16["card"]["wav"]).all())
+        and err_dec <= TOL_DEC_BF16 < min(dec_vs.values())
+        and dec16["card"]["frames"] == dec16["cpu"]["frames"] == 90
+        and all(dec16["card"]["launches"][k] == 0
+                for k in ("resblock2d", "downsample2d", "conv_transpose2d"))
+        and dec16["card"]["module_forwards_on_card"] == small_kw["n_timesteps"],
+        phase_s=time.perf_counter() - t8d)
+    emit({"bf16_decoder": {"card": card, "preset": "v2, compute_dtype=bfloat16",
+                           "check": dec_check}})
+    if not dec_check["ok"]:
+        fail(f"bf16 decoder: card against CPU, or a kernel ran: {dec_check}")
 
     # ---- 9. training: the v2 preset through the port's Trainer --------------
     from arttts_tpu_torch.train import trainer as trainer_mod
@@ -1961,6 +2334,46 @@ def main():
                        "arttts_tpu/ops/upsample_pallas.py:103",
                        ["upsample_packed :135 (_ups_kernel :103, pallas_call :168)"]),
     }
+    def bf16_entry(name):
+        """The kernel's bf16 mode: its launches on the bf16 main path (6b),
+        its phase 3b cases' errors, and the sums over one evaluation's (or one
+        request vocoder's) calls of its times and bound, beside the float32
+        kernel's, and its device ms per bench-shape request (7b)."""
+        mine = [c for c in cases16 if c["kernel"] == name]
+        ev = [c for c in mine if c["in_eval"]]
+        cores = [c["attn_core"] for c in mine if c["attn_core"]]
+        fam = {"resblock2d": "K1 resblock2d", "downsample2d": "K2 downsample2d",
+               "conv_transpose2d": "K3 conv_transpose2d", "mrf_stage": "K4 mrf_stage"}[name]
+        return {
+            "arithmetic": ("bf16 operands (round to nearest even), mma.sync m16n8k16 bf16, "
+                           "float32 accumulation"),
+            "launches": launches16[name],
+            "launches_by_path": {"v2 main path, kernel_bf16": launches16[name]},
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["max_rel_err"] for c in mine),
+            "max_gap_share": max(c["gap_share"] for c in mine),
+            "tolerance": {k: f"max|kernel-plain bf16| <= {v} * max(1, max|plain|)"
+                          for k, v in TOL_KERNEL_BF16.items() if k.startswith(name)},
+            "gap_share_limit": ("max|kernel-plain bf16| <= share * max|plain bf16-plain f32|, "
+                                f"share {BF16_GAP_SHARE} ({BF16_GAP_SHARE_ATTN_BLOCK} for a "
+                                "block with the attention, whose core alone is held to "
+                                f"{BF16_GAP_SHARE})"),
+            "ms": sum(c["ms"] for c in ev), "device_ms": sum(c["device_ms_per_call"] for c in ev),
+            "bound_ms": sum(c["bound_ms"] for c in ev),
+            "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],
+            "f32_ms": sum(c["f32_ms"] for c in ev),
+            "device_ms_per_bench_request": trace16["bf16"]["request"]["kernel_ms_by_family"][fam],
+            "f32_device_ms_per_bench_request":
+                trace16["float32"]["request"]["kernel_ms_by_family"][fam],
+            **({"attention_core": {
+                "cases": len(cores), "max_gap_share": max(r["gap_share"] for r in cores),
+                "max_ctx_flipped_share": max(r["ctx_flipped_share"] for r in cores),
+                "min_control_flipped_share": min(min(r["control_v_unrounded"],
+                                                     r["control_exp_unrounded"]) for r in cores),
+                "small_p": core_small,
+                "max_q_ctx_rel_err": max(r["q_ctx_rel_err"] for r in cores)}} if cores else {}),
+        }
+
     kernels = []
     launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name],
                                "cli": cli_launches[name],
@@ -2000,6 +2413,7 @@ def main():
             "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],
             "library_ms": None if None in lib else sum(lib),
             **updown_extra,
+            **({"bf16": bf16_entry(name)} if name in bf16_launches else {}),
         })
     kernels.append({
         "name": "maximum_path", "route": "cuda", "source": "arttts_tpu_torch/csrc/mas.cu",
