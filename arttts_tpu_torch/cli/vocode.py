@@ -23,28 +23,6 @@ import logging
 import numpy as np
 
 
-def fold_weight_norm(state_dict):
-    """Fold torch weight_norm pairs (`weight_g`, `weight_v`) into plain
-    weights w = g * v / ||v||, the norm over every dim but the one where
-    `weight_g` is not a singleton (dim 0 for HiFi-GAN's convs), in float64."""
-    import torch
-
-    out = {}
-    for k, v in state_dict.items():
-        if k.endswith("weight_g"):
-            continue
-        if k.endswith("weight_v"):
-            base = k[: -len("weight_v")]
-            g = state_dict[base + "weight_g"].double()
-            kept = next((a for a, s in enumerate(g.shape) if s > 1), 0)
-            dims = [a for a in range(g.dim()) if a != kept]
-            norm = v.double().pow(2).sum(dim=dims, keepdim=True).sqrt()
-            out[base + "weight"] = (g * v.double() / norm).to(torch.float32)
-        else:
-            out[k] = v
-    return out
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--mode", choices=["mel", "sparc"], required=True)
@@ -67,6 +45,7 @@ def main(argv=None):
     from arttts_tpu_torch.core.runtime import setup_runtime
     from arttts_tpu_torch.infer.pipeline import run_mel_vocoder, run_sparc_vocoder
     from arttts_tpu_torch.models.hifigan import HiFiGANGenerator, SpkSparcHiFiGANGenerator
+    from arttts_tpu_torch.utils.reference_weights import fold_weight_norm
 
     device = setup_runtime(args.device)
     artifacts = sorted(str(p) for p in Path(args.pred_dir).glob("*.npy"))

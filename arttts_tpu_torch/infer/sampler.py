@@ -202,10 +202,9 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
                              x_durations=None, device="cuda", spk=None,
                              solver: str = "euler", kernel_bf16: bool = False):
     """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
-    diffusion. Returns (mu_y, dec, attn, y_lengths); mu_y and dec are
-    (B, max_frames, n_feats), masked past y_lengths."""
-    if solver not in ("euler", "heun", "dpm"):
-        raise ValueError(f"unknown solver {solver!r}: euler, heun or dpm")
+    diffusion (`solver` "heun" or "dpm"; any other name runs Euler, as the
+    JAX package does). Returns (mu_y, dec, attn, y_lengths); mu_y and dec
+    are (B, max_frames, n_feats), masked past y_lengths."""
     mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations, spk)
     check_module(model, device)
     if x_durations is not None:

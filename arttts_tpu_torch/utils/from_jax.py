@@ -6,13 +6,17 @@ the exact inverse of the JAX package's converters
 (`arttts_tpu/utils/torch_convert_acoustic.py:convert_grad_tts`,
 `convert_estimator1d`, `convert_grad_ttartic`,
 `arttts_tpu/utils/torch_convert.py:convert_hifigan_generator`,
-`convert_sparc_generator`, `convert_spk_sparc`). Layouts:
+`convert_sparc_generator`, `convert_spk_sparc`,
+`arttts_tpu/utils/torch_convert_utmos.py:convert_wav2vec2`, `convert_utmos`,
+`arttts_tpu/utils/torch_convert_wavlm.py:convert_wavlm`). Layouts:
 
   flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
   flax Dense kernel (in, out)          -> Linear weight (out, in)
                                           / 1x1 conv weight (out, in, 1[, 1])
   ConvTranspose{1,2}dTorch weight      -> kept (torch layout already)
+  flax MHA query/key/value (D, H, dh)  -> Linear weight (H*dh, D)
+  flax MHA out (H, dh, D)              -> Linear weight (D, H*dh)
 
 A gradient tree has the parameter tree's structure, so the same functions
 map it. `adam_state_from_jax` carries the optimizer state of a run the JAX
@@ -35,8 +39,11 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv1d(sd, key, p) -> None:
+    """A flax Conv (k, in/groups, out) -> Conv1d weight (out, in/groups, k),
+    and its bias if it has one."""
     sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _conv2d(sd, key, p) -> None:
@@ -250,6 +257,107 @@ def spk_sparc_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     _dense(sd, "spk_ft.spk_fc.3", params["spk_enc_1"])
     for k, v in sparc_state_dict(params["generator"]).items():
         sd[f"generator.{k}"] = v
+    return sd
+
+
+def _ln(sd, key, p) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _mha(sd, key, p) -> None:
+    """flax MultiHeadDotProductAttention -> {q,k,v,out}_proj Linears."""
+    for name, part in (("q", "query"), ("k", "key"), ("v", "value")):
+        kern = np.asarray(p[part]["kernel"])  # (D, H, dh)
+        sd[f"{key}.{name}_proj.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
+        sd[f"{key}.{name}_proj.bias"] = _t(np.asarray(p[part]["bias"]).reshape(-1))
+    kern = np.asarray(p["out"]["kernel"])  # (H, dh, D)
+    sd[f"{key}.out_proj.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+    sd[f"{key}.out_proj.bias"] = _t(p["out"]["bias"])
+
+
+def wav2vec2_state_dict(params: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """`Wav2Vec2Encoder` params -> the port's `Wav2Vec2Encoder` state dict
+    (fairseq names; the inverse of `convert_wav2vec2(naming="fairseq")`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    fe = params["feature_extractor"]
+    i = 0
+    while f"conv_{i}" in fe:
+        _conv1d(sd, f"{prefix}feature_extractor.conv_layers.{i}.0", fe[f"conv_{i}"])
+        i += 1
+    _ln(sd, f"{prefix}feature_extractor.conv_layers.0.2", fe["group_norm"])
+    _ln(sd, f"{prefix}layer_norm", params["feature_norm"])
+    _dense(sd, f"{prefix}post_extract_proj", params["feature_projection"])
+    _conv1d(sd, f"{prefix}encoder.pos_conv.0", params["pos_conv"]["conv"])
+    _ln(sd, f"{prefix}encoder.layer_norm", params["encoder_norm"])
+    i = 0
+    while f"layer_{i}" in params:
+        lp, q = params[f"layer_{i}"], f"{prefix}encoder.layers.{i}"
+        _mha(sd, f"{q}.self_attn", lp["attention"])
+        _ln(sd, f"{q}.self_attn_layer_norm", lp["layer_norm"])
+        _dense(sd, f"{q}.fc1", lp["fc1"])
+        _dense(sd, f"{q}.fc2", lp["fc2"])
+        _ln(sd, f"{q}.final_layer_norm", lp["final_layer_norm"])
+        i += 1
+    return sd
+
+
+def utmos_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`UTMOSPredictor` params -> the port's `UTMOSPredictor` state dict
+    (the lightning checkpoint's names with weight norm folded; the inverse
+    of `convert_utmos`)."""
+    sd = wav2vec2_state_dict(params["ssl"], prefix="feature_extractors.0.ssl_model.")
+    sd["feature_extractors.1.embedding.weight"] = _t(params["domain_embedding"]["embedding"])
+    sd["output_layers.0.judge_embedding.weight"] = _t(params["judge_embedding"]["embedding"])
+    for k, v in params["decoder_rnn"].items():
+        sd[f"output_layers.0.decoder_rnn.{k}"] = _t(v)
+    _dense(sd, "output_layers.1.net.0", params["proj_0"])
+    _dense(sd, "output_layers.1.net.3", params["proj_1"])
+    return sd
+
+
+def wavlm_state_dict(params: Dict, config, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """`WavLMEncoder` params -> the port's `WavLMEncoder` state dict (HF
+    names; the inverse of `convert_wavlm`). Layers and the final LayerNorm
+    that the tree lacks (a tapped init builds layers 0..tap-1 only) are left
+    out."""
+    sd: Dict[str, torch.Tensor] = {}
+    fe = params["feature_extractor"]
+    for i in range(len(config.conv_layers)):
+        q = f"{prefix}feature_extractor.conv_layers.{i}"
+        _conv1d(sd, f"{q}.conv", fe[f"conv_{i}"])
+        if config.conv_norm == "layer":
+            _ln(sd, f"{q}.layer_norm", fe[f"conv_ln_{i}"])
+        elif i == 0:
+            _ln(sd, f"{q}.layer_norm", fe["group_norm"])
+    _ln(sd, f"{prefix}feature_projection.layer_norm", params["feature_norm"])
+    _dense(sd, f"{prefix}feature_projection.projection", params["feature_projection"])
+    _conv1d(sd, f"{prefix}encoder.pos_conv_embed.conv", params["pos_conv"]["conv"])
+    if "encoder_norm" in params:
+        _ln(sd, f"{prefix}encoder.layer_norm", params["encoder_norm"])
+    for i in range(config.num_layers):
+        if f"layer_{i}" not in params:
+            continue
+        lp, q = params[f"layer_{i}"], f"{prefix}encoder.layers.{i}"
+        a = lp["attention"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(sd, f"{q}.attention.{name}", a[name])
+        _dense(sd, f"{q}.attention.gru_rel_pos_linear", a["gate_proj"])
+        sd[f"{q}.attention.gru_rel_pos_const"] = _t(a["gate_const"]).view(1, -1, 1, 1)
+        if "rel_attn_embed" in a:
+            sd[f"{q}.attention.rel_attn_embed.weight"] = _t(a["rel_attn_embed"])
+        _ln(sd, f"{q}.layer_norm", lp["layer_norm"])
+        _ln(sd, f"{q}.final_layer_norm", lp["final_layer_norm"])
+        _dense(sd, f"{q}.feed_forward.intermediate_dense", lp["fc1"])
+        _dense(sd, f"{q}.feed_forward.output_dense", lp["fc2"])
+    return sd
+
+
+def sparc_encoder_state_dict(params: Dict, config) -> Dict[str, torch.Tensor]:
+    """`SparcEncoder` params -> the port's `SparcEncoder` state dict:
+    `wavlm.` (as `wavlm_state_dict`, `config.wavlm`) and `ema_probe`."""
+    sd = wavlm_state_dict(params["wavlm"], config.wavlm, prefix="wavlm.")
+    _dense(sd, "ema_probe", params["ema_probe"])
     return sd
 
 

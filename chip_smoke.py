@@ -51,7 +51,9 @@ fatal on failure (exit code 1, no result line):
    core's distance, with controls of unrounded v and exp(k - max) that
    must differ), the same bits twice; each timed (events, device ms)
    beside its bf16 bound (dense bf16 peak) and the float32 kernel's time,
-   summed per request by the kernel table's rows;
+   summed per request by the kernel table's rows; K2/K3 beside one
+   `F.conv2d` / `F.conv_transpose2d` call on bf16 operands at the main
+   path's shapes (the library time of their bf16 mode);
 4. hold the whole score network, kernel path against the module path, at
    80x768 (and at bucket 128 with padding), and the v6 estimator with the
    speaker plane at 16x256 (masked statistics, 181 valid frames; the module
@@ -134,7 +136,24 @@ fatal on failure (exit code 1, no result line):
    parameter tensor moved, the checkpoints written; median step wall and
    peak memory per preset, and one more step of each under the profiler
    (device time, launches, idle share). Then one `train_step` of v1 and of
-   v6 (B=2, pinned draws, dropout off) on the card against the CPU, as 9b.
+   v6 (B=2, pinned draws, dropout off) on the card against the CPU, as 9b;
+12. eval: at full width from seeds (UTMOS: wav2vec2-base 12 x 768 with the
+   BiLSTM head and 3,000 judges; the SPARC encoder: WavLM-Large, 24 x 1024
+   built, 9 run, and the EMA probe; v1, v2 and both vocoders), on a corpus
+   it writes under `build/chip_smoke_eval/` (removed after):
+   `cli.encode_audio.main(["--native", ...])` over the corpus wavs (every
+   file written, encode RTF), `cli.pipeline.main` for v2 (mel: quanti_mel
+   against mels of the port's `audio/mel.py`, HiFi-GAN, UTMOS from a seeded
+   lightning-named file) and v1 (sparc: quanti_art against the encoder's
+   features, the SPARC vocoder, UTMOS), every CSV read and finite, K1-K5
+   launched as often as the runs' evaluations and vocoder windows call
+   them; the demo server (`cli.demo`) on 127.0.0.1, port 0, in a thread:
+   GET /, /api/tts Euler@50 and DPM@10, /api/mos on the returned wav, any
+   status but 200 a failure, K1-K5 counted per request; UTMOS scores of
+   the v2 wavs and one wav's SPARC features card against CPU (TOL_MOS,
+   TOL_ENC_REL, ENC_VOICED_AGREE, TOL_ENC_F0_HZ); walls: UTMOS audio
+   seconds scored a second at B=32 x 10 s, the encoder's RTF, the
+   pipelines by stage, the demo's requests.
 
 Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
 entry each) and the card line come before the last, which is
@@ -222,7 +241,7 @@ CLI_PRESETS = ("v0", "v1", "v2", "v3", "v4", "v5", "v5_preblock")
 HEUN_STEPS, DPM_STEPS = 15, 10
 
 
-def write_cli_corpus(root):
+def write_cli_corpus(root, presets=CLI_PRESETS):
     """A seeded single-speaker corpus in the JAX package's layouts under
     `root`: 22.05 kHz wavs, SPARC tracks (`encoded/emasrc`), phnm3
     alignments with their tracks (`phnm/phnm3`, `phnm/encoded_audio_en/emasrc`),
@@ -263,8 +282,9 @@ def write_cli_corpus(root):
     (root / "text.txt").write_text("\n".join(text_lines[:-1]))
     (root / "phnm.txt").write_text("\n".join(phnm_lines[:-1]))
     (root / "short.txt").write_text(phnm_lines[-1])
-    for k, preset in enumerate(CLI_PRESETS):
-        model = build_model(get_preset(preset).model, device="cpu", seed=20 + k)
+    for preset in presets:
+        model = build_model(get_preset(preset).model, device="cpu",
+                            seed=20 + CLI_PRESETS.index(preset))
         save_checkpoint(str(root / "ckpt"), preset, model.state_dict())
     torch.save({"generator": build_vocoder(device="cpu", seed=1).state_dict()},
                root / "hifigan.pt")
@@ -274,6 +294,14 @@ def write_cli_corpus(root):
         parts[head][rest] = v
     torch.save({"config": {"sr": 16000}, "state_dict": parts}, root / "sparc.ckpt")
     np.save(root / "spk.npy", r.standard_normal(1024).astype(np.float32))
+
+
+def vocode_calls(frames):
+    """Generator forwards `vocode_chunked` makes for tracks of these frame
+    counts: one for a track within a window (512 + 2 x 32 frames), else one
+    per batch of 8 windows; each runs 3 K4 stages and 2 K5 upsamples."""
+    W = 512 + 2 * 32
+    return sum(1 if n <= W else math.ceil(math.ceil(n / 512) / 8) for n in frames)
 
 
 def cli_phase(card, dev, counters, plains, kernel_time, families):
@@ -383,8 +411,7 @@ def cli_phase(card, dev, counters, plains, kernel_time, families):
         wall = time.perf_counter() - t
         launches = {f.__name__: f.launches for f in counters}
         frames = [np.load(root / "art" / pred / (Path(p).stem + ".npy")).shape[1] for p in paths]
-        W = 512 + 2 * 32  # vocode_chunked's window; 8 windows a batch
-        calls = sum(1 if n <= W else math.ceil(math.ceil(n / 512) / 8) for n in frames)
+        calls = vocode_calls(frames)
         want = {"resblock2d": 0, "downsample2d": 0, "conv_transpose2d": 0,
                 "mrf_stage": 3 * calls, "upsample1d": 2 * calls}
         sr_want = 16000 if mode == "sparc" else 22050
@@ -877,6 +904,336 @@ def train_presets_phase(card, dev, counters, plains, K6):
     return total
 
 
+# phase 12 (`eval`): card against CPU on the same weights, each set at about
+# 10x the distance its first run read (H100, 700 W): UTMOS scores 2.4e-7;
+# EMA 3.27e-6 and loudness 2.1e-7 of max|CPU|; voicing agreed on all 199
+# frames (the limit lets 1% flip), f0 1.5e-4 Hz where both are voiced.
+TOL_MOS = 2.5e-6  # max |card - CPU| of a UTMOS score
+TOL_ENC_REL = 3.3e-5  # EMA and loudness: max |card - CPU| / max |CPU|
+ENC_VOICED_AGREE = 0.99  # share of frames whose voicing decision agrees
+TOL_ENC_F0_HZ = 1.5e-3  # f0 on the frames voiced on both sides
+UTMOS_B, UTMOS_BUCKET = 32, 160000  # the throughput batch: 32 clips of 10 s
+
+
+def eval_phase(card, dev, counters, plains):
+    """Phase 12 (`eval`): `cli.encode_audio --native` over a seeded corpus,
+    `cli.pipeline` for v2 (mel, quanti_mel, UTMOS) and v1 (sparc,
+    quanti_art on the encoder's features, UTMOS), the demo server's routes,
+    card against CPU for UTMOS and the SPARC encoder, and the walls of each.
+    Returns the K1-K5 launches of the pipelines and the demo."""
+    import threading
+    import http.client
+
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.audio.io import load_wav
+    from arttts_tpu_torch.audio.mel import MelSpectrogram
+    from arttts_tpu_torch.cli import demo as cli_demo
+    from arttts_tpu_torch.cli import encode_audio as cli_encode
+    from arttts_tpu_torch.cli import pipeline as cli_pipeline
+    from arttts_tpu_torch.cli import score as cli_score
+    from arttts_tpu_torch.cli import synthesize as cli_synthesize
+    from arttts_tpu_torch.cli import vocode as cli_vocode
+    from arttts_tpu_torch.eval import quanti
+    from arttts_tpu_torch.eval.utmos_scorer import UTMOSScorer
+    from arttts_tpu_torch.models.sparc_encoder import SparcEncoderConfig, build_encoder
+    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
+    from arttts_tpu_torch.models.utmos import build_utmos
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    t0 = time.perf_counter()
+    write_cli_corpus(root, presets=("v1", "v2"))
+    # a seeded UTMOS in the lightning file's layout, pos_conv weight-normed (dim 2)
+    sd = build_utmos(device="cpu", seed=3).state_dict()
+    pc = "feature_extractors.0.ssl_model.encoder.pos_conv.0."
+    w = sd.pop(pc + "weight")
+    sd[pc + "weight_g"] = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    sd[pc + "weight_v"] = w
+    torch.save({"state_dict": sd}, root / "utmos.ckpt")
+    wav_paths = sorted((root / "wavs").glob("*.wav"))
+    (root / "wavs.txt").write_text("\n".join(f"{p}|x" for p in wav_paths))
+    mel = MelSpectrogram(device=dev)
+    (root / "ref_mels").mkdir()
+    for p in wav_paths:
+        np.save(root / "ref_mels" / f"{p.stem}.npy", mel(load_wav(p)[0]).cpu().numpy())
+    corpus_s = time.perf_counter() - t0
+
+    def reset():
+        for f in counters + plains:
+            setattr(f, "launches" if f in counters else "cuda_calls", 0)
+        GradLogPEstimator2d.cuda_calls = 0
+
+    def read():
+        plain = {f.__name__: f.cuda_calls for f in plains}
+        plain["GradLogPEstimator2d"] = GradLogPEstimator2d.cuda_calls
+        return {f.__name__: f.launches for f in counters}, plain
+
+    stage_walls = {}
+
+    def timed(name, fn):
+        def wrap(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_walls[name] = stage_walls.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return wrap
+
+    # ---- encode_audio --native: the v1 pipeline's --ref-art-dir ----
+    enc_walls = []
+    orig_encode = quanti.encode_padded
+
+    def encode_timed(encoder, wav, device):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_encode(encoder, wav, device)
+        enc_walls.append((time.perf_counter() - t, len(wav) / 16000))
+        return out
+
+    quanti.encode_padded = encode_timed
+    reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        cli_encode.main(["--manifest", str(root / "wavs.txt"), "--save-dir",
+                         str(root / "encoded_native"), "--native", "--device", str(dev)])
+    finally:
+        quanti.encode_padded = orig_encode
+    encode_wall = time.perf_counter() - t
+    enc_files = sorted(p.name for p in (root / "encoded_native" / "emasrc").glob("*.npy"))
+    spk_files = sorted(p.name for p in (root / "encoded_native" / "spk_preemb").glob("*.npy"))
+    want_files = [f"{p.stem}.npy" for p in wav_paths]
+    feats = {n: np.load(root / "encoded_native" / "emasrc" / n) for n in enc_files}
+    encode = dict(files=len(enc_files), cli_wall_s=encode_wall,
+                  encode_wall_s=[w for w, _ in enc_walls[1:]],
+                  audio_s=[a for _, a in enc_walls[1:]],
+                  rtf_excluding_first=(sum(w for w, _ in enc_walls[1:])
+                                       / sum(a for _, a in enc_walls[1:])),
+                  first_call_s=enc_walls[0][0] if enc_walls else None,
+                  launches=read()[0])
+    if enc_files != want_files or spk_files != want_files:
+        failures.append(f"encode_audio wrote {enc_files} / {spk_files}, expected {want_files}")
+    if not all(a.ndim == 2 and a.shape[1] == 14 and np.isfinite(a).all() for a in feats.values()):
+        failures.append("encode_audio: a wrong or non-finite feature track")
+    if any(encode["launches"].values()):
+        failures.append(f"encode_audio launched a K1-K5 kernel: {encode['launches']}")
+
+    # ---- the pipelines, each stage timed ----
+    patches = [(cli_synthesize, "main", "synthesize"), (quanti, "quanti_mel", "quanti"),
+               (quanti, "quanti_art", "quanti"), (cli_vocode, "main", "vocode"),
+               (cli_score, "main", "score")]
+    originals = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for m, a, name in patches:
+        setattr(m, a, timed(name, getattr(m, a)))
+    pipelines = {}
+    try:
+        for preset, fl, extra in (
+                ("v2", "text.txt", ["--ref-mel-dir", str(root / "ref_mels"), "--vocoder-ckpt",
+                                    str(root / "hifigan.pt")]),
+                ("v1", "phnm.txt", ["--artic-dir", str(root / "encoded"), "--ref-art-dir",
+                                    str(root / "encoded_native" / "emasrc"), "--vocoder-ckpt",
+                                    str(root / "sparc.ckpt"), "--spk-ft", str(root / "spk.npy"),
+                                    "--pitch-stats", "140", "30"])):
+            work = root / "work" / preset
+            stage_walls.clear()
+            reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cli_pipeline.main(["--preset", preset, "--ckpt", str(root / "ckpt" / preset),
+                               "--filelist", str(root / fl), "--data-root", str(root),
+                               "--workdir", str(work), "--utmos-ckpt", str(root / "utmos.ckpt"),
+                               "--device", str(dev), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches, plain = read()
+            preds = sorted((work / "preds").glob("*.npy"))
+            frames = [int(np.load(p).shape[1]) for p in preds]
+            n_eval = N_STEPS * len(preds)
+            n_voc = vocode_calls(frames)
+            want = {"resblock2d": 13 * n_eval, "downsample2d": 2 * n_eval,
+                    "conv_transpose2d": 2 * n_eval, "mrf_stage": 3 * n_voc,
+                    "upsample1d": 2 * n_voc}
+            csvs = {}
+            for name in ("quanti_mel" if preset == "v2" else "quanti_art", "utmos"):
+                with open(work / f"{name}.csv") as f:
+                    rows = [r.split(",") for r in f.read().strip().splitlines()]
+                rows = rows[1:] if rows[0][0] == "sample_id" else rows
+                vals = [float(v) for r in rows for v in r[1:]]
+                csvs[name] = dict(rows=len(rows), values_finite=bool(np.isfinite(vals).all()),
+                                  mean_by_column=np.mean([[float(v) for v in r[1:]]
+                                                          for r in rows], axis=0).tolist())
+            wavs = sorted((work / "wavs").glob("*.wav"))
+            wav_ok = len(wavs) == len(preds) > 0
+            for p in wavs:
+                a, _ = load_wav(p)
+                wav_ok = wav_ok and bool(np.isfinite(a).all()) and a.size > 0
+            sr = 22050 if preset == "v2" else 16000
+            audio_s = sum(f * 256 / sr for f in frames)
+            pipelines[preset] = dict(
+                utterances=len(preds), frames=frames, steps=N_STEPS, wall_s=wall,
+                stage_wall_s=dict(stage_walls), audio_s=audio_s, rtf=wall / audio_s,
+                launches=launches, expected_launches=want, plain_calls_on_card=plain,
+                csv=csvs, wavs_ok=wav_ok)
+            if launches != want or any(plain.values()):
+                failures.append(f"pipeline {preset}: launches {launches}, expected {want}; "
+                                f"plain {plain}")
+            if not wav_ok or any(c["rows"] != len(preds) or not c["values_finite"]
+                                 for c in csvs.values()):
+                failures.append(f"pipeline {preset}: wavs or CSVs wrong: {csvs}")
+    finally:
+        for m, a, fn in originals:
+            setattr(m, a, fn)
+
+    # ---- the demo server: GET /, /api/tts (Euler@50, DPM@10), /api/mos ----
+    app = cli_demo.DemoApp("v2", ckpt=str(root / "ckpt" / "v2"),
+                           vocoder_ckpt=str(root / "hifigan.pt"),
+                           utmos_ckpt=str(root / "utmos.ckpt"), device=dev)
+    srv = cli_demo.serve(app, "127.0.0.1", 0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+
+    def request(method, path, body=None):
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=300)
+        reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+        wall = time.perf_counter() - t
+        conn.close()
+        return r.status, data, wall, read()
+
+    demo = []
+    try:
+        np.random.seed(0)  # the requests' generator seeds
+        warm = request("POST", "/api/tts", json.dumps({"text": CLI_TEXTS[1], "n_timesteps": 2}))
+        if warm[0] != 200:
+            failures.append(f"demo warm-up /api/tts: status {warm[0]}: {warm[1][:300]!r}")
+        for method, path, body, steps in (
+                ("GET", "/", None, 0),
+                ("POST", "/api/tts", {"text": CLI_TEXTS[0], "n_timesteps": N_STEPS,
+                                      "solver": "euler"}, N_STEPS),
+                ("POST", "/api/tts", {"text": CLI_TEXTS[0], "n_timesteps": DPM_STEPS,
+                                      "solver": "dpm"}, DPM_STEPS),
+                ("POST", "/api/mos", "last wav", 0)):
+            if body == "last wav":
+                body = demo[-1]["_wav"]
+            elif body is not None:
+                body = json.dumps(body)
+            status, data, wall, (launches, plain) = request(method, path, body)
+            tts = path == "/api/tts"
+            want = {"resblock2d": 13 * steps, "downsample2d": 2 * steps,
+                    "conv_transpose2d": 2 * steps, "mrf_stage": 3 * tts, "upsample1d": 2 * tts}
+            rec = dict(method=method, path=path, steps=steps, status=status, wall_s=wall,
+                       bytes=len(data), launches=launches, expected_launches=want,
+                       plain_calls_on_card=plain)
+            if tts:
+                rec["_wav"] = data
+                rec["audio_s"] = (len(data) - 44) / 2 / 22050
+            if path == "/api/mos" and status == 200:
+                rec["mos"] = json.loads(data)["mos"]
+            demo.append(rec)
+            if status != 200:
+                failures.append(f"demo {method} {path}: status {status}: {data[:300]!r}")
+            if launches != want or any(plain.values()):
+                failures.append(f"demo {method} {path}: launches {launches}, expected {want}; "
+                                f"plain {plain}")
+    finally:
+        srv.shutdown()
+        server.join(timeout=30)
+        srv.server_close()
+    for r in demo:
+        r.pop("_wav", None)
+    if "mos" not in demo[-1] or not math.isfinite(demo[-1]["mos"]):
+        failures.append(f"demo /api/mos: {demo[-1]}")
+
+    # ---- card against CPU, the same weights ----
+    card_scores = {}
+    with open(root / "work" / "v2" / "utmos.csv") as f:
+        for line in f.read().strip().splitlines():
+            name, v = line.split(",")
+            card_scores[name] = float(v)
+    cpu_scores = UTMOSScorer.from_lightning_checkpoint(str(root / "utmos.ckpt"), device="cpu") \
+        .score_directory(str(root / "work" / "v2" / "wavs"))
+    mos_err = max(abs(card_scores[n] - cpu_scores[n]) for n in cpu_scores)
+    mos_check = dict(files=len(cpu_scores), max_abs_err=mos_err, tol=TOL_MOS,
+                     ok=sorted(cpu_scores) == sorted(card_scores) and mos_err <= TOL_MOS)
+    if not mos_check["ok"]:
+        failures.append(f"UTMOS card vs CPU: {mos_check}")
+
+    enc_cpu = build_encoder(None, SparcEncoderConfig(), device="cpu")  # the CLI's seed
+    name = want_files[-1]  # the 4 s utterance
+    wav, _ = load_wav(root / "wavs" / name.replace(".npy", ".wav"), target_sr=16000)
+    cpu_feats, _ = quanti.encode_padded(enc_cpu, wav, torch.device("cpu"))
+    gpu_feats = feats[name]
+    rel = {col: float(np.abs(gpu_feats[:, sl] - cpu_feats[:, sl]).max()
+                      / max(np.abs(cpu_feats[:, sl]).max(), 1e-30))
+           for col, sl in (("ema", slice(0, 12)), ("loudness", slice(13, 14)))}
+    v_g, v_c = gpu_feats[:, 12] > 0, cpu_feats[:, 12] > 0
+    agree = float((v_g == v_c).mean())
+    both = v_g & v_c
+    f0_err = float(np.abs(gpu_feats[both, 12] - cpu_feats[both, 12]).max()) if both.any() else 0.0
+    enc_check = dict(file=name, frames=int(gpu_feats.shape[0]), rel_err=rel,
+                     voiced_agree_share=agree, voiced_frames=int(both.sum()),
+                     f0_max_abs_err_hz=f0_err,
+                     tol=dict(rel=TOL_ENC_REL, voiced_agree=ENC_VOICED_AGREE,
+                              f0_hz=TOL_ENC_F0_HZ),
+                     ok=(gpu_feats.shape == cpu_feats.shape and max(rel.values()) <= TOL_ENC_REL
+                         and agree >= ENC_VOICED_AGREE and f0_err <= TOL_ENC_F0_HZ))
+    if not enc_check["ok"]:
+        failures.append(f"SparcEncoder card vs CPU: {enc_check}")
+    del enc_cpu
+
+    # ---- throughput: UTMOS at B=32 x 10 s, one 10 s clip through the encoder ----
+    scorer = UTMOSScorer.from_lightning_checkpoint(str(root / "utmos.ckpt"), device=dev)
+    clip = np.tile(load_wav(wav_paths[0], target_sr=16000)[0], 10)[:UTMOS_BUCKET]
+    batch = [np.roll(clip, 997 * i) for i in range(UTMOS_B)]
+    scorer.score_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_it = 3
+    t = time.perf_counter()
+    for _ in range(n_it):
+        scores = scorer.score_batch(batch)
+    utmos_s = (time.perf_counter() - t) / n_it
+    enc_card = build_encoder(None, SparcEncoderConfig(), device=dev)
+    quanti.encode_padded(enc_card, clip, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_it):
+        quanti.encode_padded(enc_card, clip, dev)
+    enc10_s = (time.perf_counter() - t) / n_it
+    throughput = dict(
+        utmos=dict(batch=UTMOS_B, bucket_s=UTMOS_BUCKET / 16000, wall_s_per_batch=utmos_s,
+                   audio_s_per_s=UTMOS_B * UTMOS_BUCKET / 16000 / utmos_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   scores_finite=bool(np.isfinite(scores).all())),
+        sparc_encoder_10s=dict(wall_s=enc10_s, rtf=enc10_s / 10.0))
+    if not throughput["utmos"]["scores_finite"]:
+        failures.append("UTMOS at B=32: non-finite scores")
+    del scorer, enc_card, app
+    torch.cuda.empty_cache()
+
+    total = dict.fromkeys((f.__name__ for f in counters), 0)
+    for rec in list(pipelines.values()) + demo:
+        for k, v in rec["launches"].items():
+            total[k] += v
+    emit({"eval": {"card": card, "corpus_s": corpus_s, "encode_audio": encode,
+                   "pipelines": pipelines, "demo": demo, "card_vs_cpu_utmos": mos_check,
+                   "card_vs_cpu_sparc_encoder": enc_check, "throughput": throughput,
+                   "launches": total, "phase_s": time.perf_counter() - t_phase}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("eval: " + "; ".join(failures))
+    return total
+
+
 def main():
     if not (ROOT / "arttts_tpu_torch" / "csrc").is_dir():
         fail("arttts_tpu_torch/ is not beside chip_smoke.py: run from a checkout")
@@ -997,13 +1354,15 @@ def main():
     cases16 = []  # phase 3b
 
     def bf16_check(kernel, case, lengths, run16, plain16, plain32, flops, nbytes, key, timed,
-                   n=10, attn=False, core=None):
+                   n=10, attn=False, core=None, lib16=None):
         """Phase 3b's record of one case: the bf16 kernel against its plain
         bf16 version, within the kernel's tolerance and within a share of
         the plain version's own bf16-vs-float32 distance on the same inputs
         (the mode and its rounding points), a second run's bits, event and
         device ms, and the bf16 bound (operations over the dense bf16 peak,
-        or bytes). `core`: the attention core's own record, when fused."""
+        or bytes). `core`: the attention core's own record, when fused.
+        `lib16`: one PyTorch call of the same function on bf16 operands
+        (cuDNN accumulates in float32), timed beside it."""
         got, ref = run16(), plain16()
         torch.cuda.synchronize()
         if got.shape != ref.shape:
@@ -1027,7 +1386,9 @@ def main():
             ms=cuda_ms(run16, n), device_ms_per_call=device_ms(run16, key, n) if timed else None,
             bound_ms=b_ms, bound_by=b_by, f32_ms=ref.get("ms"),
             f32_device_ms=ref.get("device_ms_per_call"), f32_bound_ms=ref.get("bound_ms"),
-            library_ms=ref.get("library_ms"), library_conv_ms=ref.get("library_conv_ms")))
+            library_ms=ref.get("library_ms"), library_conv_ms=ref.get("library_conv_ms"),
+            library_bf16_ms=cuda_ms(lib16, n) if lib16 else None,
+            library_bf16_device_ms=device_ms(lib16, None, n) if lib16 else None))
 
     def ordered_bf16(t):
         """bf16 values as integers in their order: neighbours differ by 1."""
@@ -1211,11 +1572,16 @@ def main():
         name = "downsample_kernel" if kernel == "downsample2d" else "convt_kernel"
         if bf16:
             fn = getattr(updown, kernel)
+            lib_fn = (torch.nn.functional.conv2d if kernel == "downsample2d"
+                      else torch.nn.functional.conv_transpose2d)
+            x16, w16, b16 = (t.to(torch.bfloat16) for t in (x, w, b))
             return bf16_check(kernel, f"C={cin} {H}x{T}", lengths,
                               lambda: fn(x, lens, w, b, bf16=True),
                               lambda: getattr(updown, kernel + "_plain")(x, lens, w, b,
                                                                          bf16=True),
-                              plain, flops, nbytes, name, full or artic)
+                              plain, flops, nbytes, name, full or artic,
+                              lib16=(lambda: lib_fn(x16, w16, b16, stride=2, padding=1))
+                              if full else None)
         err, scale = compare(kern, plain)
         again = kern()
         same_bits = bool(torch.equal(kern(), again))
@@ -1524,6 +1890,10 @@ def main():
             r[key] += k * c[key]
         r["device_ms"] += k * c["device_ms_per_call"]
         r["f32_device_ms"] += k * (c["f32_device_ms"] or 0.0)
+        if c["library_bf16_ms"] is not None:  # rows 3-6: F.conv2d / F.conv_transpose2d in bf16
+            r["library_bf16_ms"] = r.get("library_bf16_ms", 0.0) + k * c["library_bf16_ms"]
+            r["library_bf16_device_ms"] = (r.get("library_bf16_device_ms", 0.0)
+                                           + k * c["library_bf16_device_ms"])
     emit({"bf16_rows_per_request": {"card": card, "steps": N_STEPS, "rows": rows16,
                                     "phase_s": time.perf_counter() - t3b}})
 
@@ -2314,6 +2684,9 @@ def main():
     # ---- 11. train_presets: v1, v3, v5, v6, msml1h through cli.train ----------
     train_presets_launches = train_presets_phase(card, dev, counters, plains, K6)
 
+    # ---- 12. eval: encode_audio, the pipelines, the demo, card against CPU ----
+    eval_launches = eval_phase(card, dev, counters, plains)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -2362,6 +2735,12 @@ def main():
             "bound_ms": sum(c["bound_ms"] for c in ev),
             "bound_by": max(ev, key=lambda c: c["bound_ms"])["bound_by"],
             "f32_ms": sum(c["f32_ms"] for c in ev),
+            # one PyTorch call on bf16 operands (K2/K3: F.conv2d / F.conv_transpose2d)
+            "library_ms": (sum(c["library_bf16_ms"] for c in ev)
+                           if all(c["library_bf16_ms"] is not None for c in ev) else None),
+            "library_device_ms": (sum(c["library_bf16_device_ms"] for c in ev)
+                                  if all(c["library_bf16_device_ms"] is not None for c in ev)
+                                  else None),
             "device_ms_per_bench_request": trace16["bf16"]["request"]["kernel_ms_by_family"][fam],
             "f32_device_ms_per_bench_request":
                 trace16["float32"]["request"]["kernel_ms_by_family"][fam],
@@ -2377,7 +2756,8 @@ def main():
     kernels = []
     launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name],
                                "cli": cli_launches[name],
-                               "train_presets": train_presets_launches[name]} for name in meta}
+                               "train_presets": train_presets_launches[name],
+                               "eval": eval_launches[name]} for name in meta}
     for name, (src, replaces, wrappers) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]

@@ -150,9 +150,11 @@ def test_dpm_schedule_and_step_count(rng):
     calls.clear()
     psampler.reverse_diffusion_heun(pm, z, mask, mu, 5, score_fn=counting)
     assert len(calls) == 10  # two a step
-    with pytest.raises(ValueError, match="unknown solver"):
-        psampler.synthesize(pm, torch.Generator(), np.ones((1, 5, 25), np.float32),
-                            np.array([5]), 2, 64, device="cpu", solver="rk4")
+    # an unknown solver name runs Euler, as in the JAX package (its `else` branch)
+    x, xl = np.ones((1, 5, 25), np.float32), np.array([5])
+    other, euler = (psampler.synthesize(pm, torch.Generator().manual_seed(3), x, xl, 2, 64,
+                                        device="cpu", solver=s)[1] for s in ("rk4", "euler"))
+    assert torch.equal(other, euler)
 
 
 def test_heun15_quality_gate_vs_euler50():
@@ -423,7 +425,8 @@ def test_clis_end_to_end_on_cpu(tiny_preset, tmp_path, monkeypatch):
 
 
 def test_cli_parsers_mirror_jax():
-    """The port's parsers take the JAX parsers' flags, plus `--device`."""
+    """The port's parsers (synthesize, vocode, score, pipeline, encode_audio,
+    demo) take the JAX parsers' flags, plus `--device`."""
     import arttts_tpu.cli.synthesize as jsynth_cli
     import arttts_tpu.cli.vocode as jvocode_cli
 
@@ -443,5 +446,12 @@ def test_cli_parsers_mirror_jax():
             argparse.ArgumentParser.parse_args = real
         return set(seen)
 
-    for p, j in ((psynth, jsynth_cli), (pvocode, jvocode_cli)):
-        assert flags(p) == flags(j) | {"--device"}
+    import arttts_tpu.cli.demo as jdemo
+    import arttts_tpu.cli.encode_audio as jencode
+    import arttts_tpu.cli.pipeline as jpipeline
+    import arttts_tpu.cli.score as jscore
+    from arttts_tpu_torch.cli import demo, encode_audio, pipeline, score
+
+    for p, j in ((psynth, jsynth_cli), (pvocode, jvocode_cli), (score, jscore),
+                 (pipeline, jpipeline), (encode_audio, jencode), (demo, jdemo)):
+        assert flags(p) == flags(j) | {"--device"}, p.__name__

@@ -46,7 +46,10 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "text.numbers", "text.cmudict", "text.sequence", "text.converters",
                 "text.phnms", "data.filelist", "audio.mel", "data.datasets", "core.paths",
                 "core.runtime", "models.unet1d", "cli.synthesize", "cli.vocode", "cli.train",
-                "voxcommunis.sampler", "eval.metrics"):
+                "voxcommunis.sampler", "eval.metrics", "models.lstm", "models.wav2vec2",
+                "models.utmos", "models.wavlm", "models.sparc_encoder", "audio.pitch",
+                "eval.utmos_scorer", "eval.quanti", "cli.score", "cli.pipeline",
+                "cli.encode_audio", "cli.demo", "utils.reference_weights"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -64,7 +67,11 @@ def test_port_sources_name_no_jax_import():
                 "text/converters.py", "text/phnms.py", "data/filelist.py", "audio/mel.py",
                 "data/datasets.py", "core/paths.py", "core/runtime.py", "models/unet1d.py",
                 "cli/synthesize.py", "cli/vocode.py", "cli/train.py", "voxcommunis/sampler.py",
-                "eval/__init__.py", "eval/metrics.py"):
+                "eval/__init__.py", "eval/metrics.py", "models/lstm.py", "models/wav2vec2.py",
+                "models/utmos.py", "models/wavlm.py", "models/sparc_encoder.py",
+                "audio/pitch.py", "eval/utmos_scorer.py", "eval/quanti.py", "cli/score.py",
+                "cli/pipeline.py", "cli/encode_audio.py", "cli/demo.py",
+                "utils/reference_weights.py"):
         assert f"arttts_tpu_torch/{new}" in names, new
     # no read of the JAX package's data files either (its copies live in the port)
     from arttts_tpu_torch.core import paths
