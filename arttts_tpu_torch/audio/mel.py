@@ -127,9 +127,16 @@ class MelSpectrogram:
     @torch.inference_mode()
     def __call__(self, y) -> torch.Tensor:
         """y: (..., num_samples) in [-1, 1] (array or tensor) -> (..., n_frames,
-        n_mels) float32 log-mel on `device`."""
+        n_mels) float32 log-mel on `device`, without a graph."""
+        return self.differentiable(torch.as_tensor(y, dtype=torch.float32).to(self.device))
+
+    def differentiable(self, y: torch.Tensor) -> torch.Tensor:
+        """The same log-mel of a float32 tensor on `device`, keeping autograd's
+        graph: the vocoder's generator loss differentiates through it, as the
+        JAX trainer differentiates the JAX `MelSpectrogram`. The gradient is
+        finite everywhere: `mag_eps` keeps the root off 0, and the clamp
+        passes none below `log_clip`."""
         c = self.config
-        y = torch.as_tensor(y, dtype=torch.float32).to(self.device)
         lead, n = y.shape[:-1], y.shape[-1]
         pad = (c.n_fft - c.hop_length) // 2
         y = F.pad(y.reshape(-1, 1, n), (pad, pad), mode="reflect")[:, 0]

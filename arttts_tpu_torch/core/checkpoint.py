@@ -5,7 +5,9 @@ The JAX package's file policy: one directory per named checkpoint
 optimizer state (so a resumed run continues Adam's moments) and
 `meta.json` with the step and extra metadata (epoch, early stopping). The
 format is the port's own: `state.pt`, a `torch.save` of the model's and the
-optimizer's state dicts.
+optimizer's state dicts. The vocoder trainer's `voc_{step}` checkpoints
+hold the generator's and the discriminators' weights only, as the JAX
+`cli/train_vocoder.py` saves them.
 """
 
 from __future__ import annotations
@@ -63,3 +65,15 @@ def latest_checkpoint(ckpt_dir: str, prefix: str = "grad_") -> Optional[str]:
         if m and int(m.group(1)) > best_n:
             best, best_n = p, int(m.group(1))
     return str(best) if best else None
+
+
+def save_vocoder_checkpoint(ckpt_dir: str, step: int, weights: Dict[str, Any]) -> str:
+    """Save `VocoderGAN.weights()` ({"gen", "disc"}) as `voc_{step}`; no
+    optimizer state. Returns its path."""
+    return save_checkpoint(ckpt_dir, f"voc_{step}", weights, step=step)
+
+
+def load_vocoder_checkpoint(path: str) -> Dict:
+    """A `voc_{step}` checkpoint -> {"gen", "disc", "step"}, on the CPU."""
+    out = load_checkpoint(path)
+    return {**out["model"], "step": out["step"]}

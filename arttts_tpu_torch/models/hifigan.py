@@ -313,3 +313,137 @@ def build_sparc_vocoder(device="cuda", seed: int = 2, **kwargs) -> SpkSparcHiFiG
         torch.manual_seed(seed)
         voc = SpkSparcHiFiGANGenerator(**kwargs)
     return voc.to(resolve(device)).eval()
+
+
+# --------------------------------------------------------------------------
+# GAN training parts: the discriminators and losses of the JAX package's
+# `models/hifigan.py:267-376`. They follow the JAX modules, not jik876's
+# torch ones: flax `padding="SAME"` (asymmetric under a stride, written as
+# `F.pad` and an unpadded conv), average pooling with flax's SAME padding
+# and `count_include_pad=True`, and no weight norm or spectral norm.
+# --------------------------------------------------------------------------
+def same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
+    """flax/XLA SAME padding of a length-n axis for kernel k and stride s:
+    ceil(n / s) outputs, the pad split with the odd one after."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator: reflect-pad T to a multiple of the period, fold
+    the wav into (T / p, p) and run (5, 1) 2D convs, stride 3 but the last,
+    along the first axis."""
+
+    def __init__(self, period: int):
+        super().__init__()
+        self.period = period
+        chans = (1, 32, 128, 512, 1024)
+        self.convs = nn.ModuleList(
+            [nn.Conv2d(a, b, (5, 1), (3, 1)) for a, b in zip(chans, chans[1:])]
+            + [nn.Conv2d(1024, 1024, (5, 1))])
+        self.conv_post = nn.Conv2d(1024, 1, (3, 1))
+
+    @staticmethod
+    def _conv(conv: nn.Conv2d, x):
+        return conv(F.pad(x, (0, 0, *same_pad(x.shape[2], conv.kernel_size[0], conv.stride[0]))))
+
+    def forward(self, x):
+        """x (B, 1, T) -> (logits (B, n), feature maps, each (B, C, H, p))."""
+        B, _, T = x.shape
+        p = self.period
+        pad = (p - T % p) % p
+        x = F.pad(x, (0, pad), mode="reflect").view(B, 1, (T + pad) // p, p)
+        fmap = []
+        for conv in self.convs:
+            x = leaky_relu(self._conv(conv, x))
+            fmap.append(x)
+        x = self._conv(self.conv_post, x)
+        fmap.append(x)
+        return x.reshape(B, -1), fmap
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator: grouped strided conv1d stack."""
+
+    SPECS = ((1, 128, 15, 1, 1), (128, 128, 41, 2, 4), (128, 256, 41, 2, 16),
+             (256, 512, 41, 4, 16), (512, 1024, 41, 4, 16), (1024, 1024, 41, 1, 16),
+             (1024, 1024, 5, 1, 1))  # (in, out, kernel, stride, groups)
+
+    def __init__(self):
+        super().__init__()
+        self.convs = nn.ModuleList(nn.Conv1d(a, b, k, s, groups=g)
+                                   for a, b, k, s, g in self.SPECS)
+        self.conv_post = nn.Conv1d(1024, 1, 3)
+
+    @staticmethod
+    def _conv(conv: nn.Conv1d, x):
+        return conv(F.pad(x, same_pad(x.shape[2], conv.kernel_size[0], conv.stride[0])))
+
+    def forward(self, x):
+        """x (B, 1, T) -> (logits (B, n), feature maps, each (B, C, T'))."""
+        fmap = []
+        for conv in self.convs:
+            x = leaky_relu(self._conv(conv, x))
+            fmap.append(x)
+        x = self._conv(self.conv_post, x)
+        fmap.append(x)
+        return x.reshape(x.shape[0], -1), fmap
+
+
+def avg_pool_same(x):
+    """flax `nn.avg_pool(x, (4,), (2,), "SAME")`: zero padding counted in
+    the mean, ceil(T / 2) frames. x (B, C, T)."""
+    return F.avg_pool1d(F.pad(x, same_pad(x.shape[2], 4, 2)), 4, 2)
+
+
+def _pairs(discs, y, y_hat, pool: bool = False):
+    """Each discriminator on y and on y_hat; with `pool`, each after the
+    first sees both average-pooled once more."""
+    outs = []
+    for i, d in enumerate(discs):
+        if pool and i:
+            y, y_hat = avg_pool_same(y), avg_pool_same(y_hat)
+        outs.append((d(y), d(y_hat)))
+    return ([o[0][0] for o in outs], [o[1][0] for o in outs],
+            [o[0][1] for o in outs], [o[1][1] for o in outs])
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    PERIODS = (2, 3, 5, 7, 11)
+
+    def __init__(self):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorP(p) for p in self.PERIODS)
+
+    def forward(self, y, y_hat):
+        """y, y_hat (B, 1, T) -> (real logits, generated logits, real feature
+        maps, generated feature maps), one entry a period."""
+        return _pairs(self.discriminators, y, y_hat)
+
+
+class MultiScaleDiscriminator(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorS() for _ in range(3))
+
+    def forward(self, y, y_hat):
+        """As `MultiPeriodDiscriminator.forward`, one entry a scale; each
+        scale after the first sees the wavs average-pooled by 2 once more."""
+        return _pairs(self.discriminators, y, y_hat, pool=True)
+
+
+def feature_loss(fmap_r, fmap_g):
+    """2 * sum over discriminators and layers of mean |real - generated|."""
+    return 2 * sum(torch.mean(torch.abs(r - g))
+                   for dr, dg in zip(fmap_r, fmap_g) for r, g in zip(dr, dg))
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    """LSGAN: sum of mean (1 - real)^2 + mean generated^2."""
+    return sum(torch.mean((1 - dr) ** 2) + torch.mean(dg ** 2)
+               for dr, dg in zip(disc_real_outputs, disc_generated_outputs))
+
+
+def generator_loss(disc_outputs):
+    """LSGAN: sum of mean (1 - generated)^2."""
+    return sum(torch.mean((1 - dg) ** 2) for dg in disc_outputs)

@@ -11,6 +11,11 @@ K1-K5 are not on it. The loss is the model family's
 (`train/losses.py:loss_for_model`); the batch's "spk" and "durations"
 reach it when present.
 
+A decoder with `compute_dtype="bfloat16"` trains as the JAX package trains
+it: its module path casts the float32 parameters at each use, so autograd
+gives float32 gradients and Adam's moments stay float32; the time
+embedding's phases stay float32. The 1D decoder ignores the field.
+
 The metrics stay on the device: nothing in a step waits for the card.
 """
 
@@ -50,18 +55,6 @@ def per_submodule_clip(model: torch.nn.Module, max_norm: float) -> None:
                 g.mul_(scale)
 
 
-def check_trainable(model_config) -> None:
-    """Raise for a configuration the port does not train yet: a 2D or
-    preblock decoder with `compute_dtype="bfloat16"` (bf16 training,
-    ROADMAP A6; the port serves that configuration, on the module path). The
-    1D decoder ignores `compute_dtype`, as in the JAX package."""
-    d = model_config.decoder
-    if d.compute_dtype != "float32" and d.kind in ("unet2d", "unet1d_preblock"):
-        raise NotImplementedError(
-            f"training a decoder with compute_dtype={d.compute_dtype!r} is not ported yet "
-            "(ROADMAP A6, bf16 training); the port serves it, and trains float32 decoders")
-
-
 def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.Adam:
     """Adam with `optax.adam`'s defaults (betas 0.9, 0.999; eps 1e-8)."""
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
@@ -83,7 +76,6 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
     Puts the model in training mode. Returns the loss parts, `total_loss`
     and `grad_norm` (the norm of all gradients before the clip), as device
     scalars."""
-    check_trainable(model.config)
     model.train()
     pinned = None
     if "pinned_t" in batch:

@@ -39,7 +39,7 @@ from arttts_tpu_torch.eval.metrics import normalized_dtw_score
 from arttts_tpu_torch.models.tts import build_model
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
 from arttts_tpu_torch.train.losses import loss_for_model
-from arttts_tpu_torch.train.step import check_trainable, eval_step, make_optimizer, train_step
+from arttts_tpu_torch.train.step import eval_step, make_optimizer, train_step
 from arttts_tpu_torch.utils.early_stopping import EarlyStopping
 
 log = logging.getLogger("arttts_tpu_torch.train")
@@ -60,7 +60,6 @@ class Trainer:
         `add_image`), or None for no logging there. The model is built from
         `config.train.random_seed` on `device`. `language_upsample`: the
         training loader's language upsampling factor (None: off)."""
-        check_trainable(config.model)
         self.config = config
         self.loss_fn = loss_for_model(config.model.name)
         self.device = resolve(device)

@@ -10,7 +10,7 @@ the exact inverse of the JAX package's converters
 `arttts_tpu/utils/torch_convert_utmos.py:convert_wav2vec2`, `convert_utmos`,
 `arttts_tpu/utils/torch_convert_wavlm.py:convert_wavlm`). Layouts:
 
-  flax Conv kernel (k, in, out)        -> Conv1d weight (out, in, k)
+  flax Conv kernel (k, in/g, out)      -> Conv1d weight (out, in/g, k)
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
   flax Dense kernel (in, out)          -> Linear weight (out, in)
                                           / 1x1 conv weight (out, in, 1[, 1])
@@ -20,7 +20,8 @@ the exact inverse of the JAX package's converters
 
 A gradient tree has the parameter tree's structure, so the same functions
 map it. `adam_state_from_jax` carries the optimizer state of a run the JAX
-package started, so the port can continue it.
+package started, so the port can continue it; `plain_adam_state_from_jax`
+does the same for the vocoder trainer's two plain Adams.
 
 Nothing here imports JAX: the trees arrive as numpy arrays (or anything
 `numpy.asarray` takes).
@@ -226,6 +227,45 @@ def hifigan_state_dict(params: Dict, num_ups: int = 4,
     return sd
 
 
+def mpd_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`MultiPeriodDiscriminator` params (`disc_{period}` subtrees, convs
+    `Conv_0`..`Conv_5`, kernels (5, 1, in, out)) -> the port's
+    `MultiPeriodDiscriminator` state dict (`discriminators.{i}.convs.{j}`,
+    `.conv_post`; Conv2d weights (out, in, 5, 1))."""
+    sd: Dict[str, torch.Tensor] = {}
+    periods = sorted(int(k.split("_")[1]) for k in params)
+    for i, p in enumerate(periods):
+        d = params[f"disc_{p}"]
+        n = len(d) - 1
+        for j in range(n):
+            _conv2d(sd, f"discriminators.{i}.convs.{j}", d[f"Conv_{j}"])
+        _conv2d(sd, f"discriminators.{i}.conv_post", d[f"Conv_{n}"])
+    return sd
+
+
+def msd_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`MultiScaleDiscriminator` params (`disc_{i}`, convs `Conv_0`..`Conv_7`,
+    grouped kernels (k, in / groups, out)) -> the port's
+    `MultiScaleDiscriminator` state dict (Conv1d weights (out, in / groups,
+    k))."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        d = params[f"disc_{i}"]
+        n = len(d) - 1
+        for j in range(n):
+            _conv1d(sd, f"discriminators.{i}.convs.{j}", d[f"Conv_{j}"])
+        _conv1d(sd, f"discriminators.{i}.conv_post", d[f"Conv_{n}"])
+    return sd
+
+
+def disc_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """`VocoderTrainState.disc_params` ({"mpd", "msd"}) -> the state dict of
+    the port's `VocoderGAN.disc` (keys under `mpd.` and `msd.`)."""
+    sd = {f"mpd.{k}": v for k, v in mpd_state_dict(params["mpd"]).items()}
+    sd.update({f"msd.{k}": v for k, v in msd_state_dict(params["msd"]).items()})
+    return sd
+
+
 def sparc_state_dict(params: Dict, num_ups: int = 4, num_blocks: int = 3,
                      num_dil: int = 3) -> Dict[str, torch.Tensor]:
     """`SparcHiFiGANGenerator` params -> the port's `SparcHiFiGANGenerator`
@@ -361,26 +401,46 @@ def sparc_encoder_state_dict(params: Dict, config) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _torch_adam_state(adam, where: str, module: torch.nn.Module, to_state_dict,
+                      learning_rate: float, betas) -> Dict:
+    """optax's `ScaleByAdamState` -> a `torch.optim.Adam` state dict for
+    `module`'s parameters: step = the optax count, exp_avg = mu, exp_avg_sq
+    = nu, the moments' trees mapped to `module`'s names by
+    `to_state_dict`. Both packages then take the same next step."""
+    if not all(hasattr(adam, k) for k in ("count", "mu", "nu")):
+        raise ValueError(f"want optax's Adam state at {where}, got {type(adam)}")
+    mu, nu = to_state_dict(adam.mu), to_state_dict(adam.nu)
+    step = float(np.asarray(adam.count))
+    template = torch.optim.Adam(module.parameters(), lr=learning_rate, betas=tuple(betas),
+                                eps=1e-8).state_dict()
+    template["state"] = {
+        i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": mu[n],
+            "exp_avg_sq": nu[n]}
+        for i, (n, _) in enumerate(module.named_parameters())
+    }
+    return template
+
+
 def adam_state_from_jax(opt_state, model: torch.nn.Module, learning_rate: float) -> Dict:
     """The JAX training state's optimizer state (`optax.chain(clip,
     adam(learning_rate))` of `arttts_tpu/train/step.py:make_optimizer`) ->
     a `torch.optim.Adam` state dict for `model`'s parameters (the port's
-    `train/step.py:make_optimizer`): step = the optax count, exp_avg = mu,
-    exp_avg_sq = nu. Both packages then take the same next step. A
-    GradTTArtic state (its moments hold `spk_encoder`) maps through
-    `grad_ttartic_state_dict`, any other through `grad_tts_state_dict`."""
+    `train/step.py:make_optimizer`). A GradTTArtic state (its moments hold
+    `spk_encoder`) maps through `grad_ttartic_state_dict`, any other
+    through `grad_tts_state_dict`."""
     adam = opt_state[1][0]  # chain(clip: EmptyState, adam: (ScaleByAdamState, EmptyState))
-    if not all(hasattr(adam, k) for k in ("count", "mu", "nu")):
-        raise ValueError(f"want optax's Adam state at opt_state[1][0], got {type(adam)}")
-    to_sd = grad_ttartic_state_dict if "spk_encoder" in adam.mu else grad_tts_state_dict
-    mu, nu = to_sd(adam.mu), to_sd(adam.nu)
-    step = float(np.asarray(adam.count))
-    template = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-                                eps=1e-8).state_dict()
-    names = [n for n, _ in model.named_parameters()]
-    template["state"] = {
-        i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": mu[n],
-            "exp_avg_sq": nu[n]}
-        for i, n in enumerate(names)
-    }
-    return template
+    to_sd = (grad_ttartic_state_dict if "spk_encoder" in getattr(adam, "mu", {})
+             else grad_tts_state_dict)
+    return _torch_adam_state(adam, "opt_state[1][0]", model, to_sd, learning_rate,
+                             (0.9, 0.999))
+
+
+def plain_adam_state_from_jax(opt_state, module: torch.nn.Module, to_state_dict,
+                              learning_rate: float, betas) -> Dict:
+    """A plain `optax.adam` state, `(ScaleByAdamState, EmptyState)` (the
+    vocoder trainer's `gen_opt` and `disc_opt`, whose betas are
+    `train/vocoder_trainer.py:ADAM_BETAS`), -> a `torch.optim.Adam` state
+    dict for `module`'s parameters; `to_state_dict` maps the moments' trees
+    to `module`'s names (`hifigan_state_dict`, `disc_state_dict`)."""
+    return _torch_adam_state(opt_state[0], "opt_state[0]", module, to_state_dict,
+                             learning_rate, betas)

@@ -153,7 +153,28 @@ fatal on failure (exit code 1, no result line):
    the v2 wavs and one wav's SPARC features card against CPU (TOL_MOS,
    TOL_ENC_REL, ENC_VOICED_AGREE, TOL_ENC_F0_HZ); walls: UTMOS audio
    seconds scored a second at B=32 x 10 s, the encoder's RTF, the
-   pipelines by stage, the demo's requests.
+   pipelines by stage, the demo's requests;
+13. train_vocoder: `cli.train_vocoder.main` in process at its defaults
+   (V1 generator, 512 channels, rates (8, 8, 2, 2), MRF (3, 7, 11) x (1, 3,
+   5), MPD + MSD, segment 8192, B=16) for VOC_STEPS steps on a corpus of
+   24 seeded wavs of 1-4 s it writes under `build/chip_smoke_vocoder/`
+   (removed after), then a VOC_FT_STEPS-step fine-tune from `--init-ckpt`
+   on `--base-mels-dir` mels of the port's `audio/mel.py`: finite losses,
+   `voc_*` checkpoints, K4 / K5 launched exactly 3 / 2 times a step (the
+   discriminator update's generator pass) and no plain version on the
+   card; the trained generator's K4/K5 `wav_hat` against its module path
+   within TOL_WAV (phase 3 holds K4/K5 at the training shapes too); step
+   walls, peak memory, the step by part (the discriminators' share by
+   subtraction) and one step under the profiler (device time by kind,
+   launches, idle share); one full-width step at B=2 on the card against
+   the CPU (TOL_GAN_METRIC, TOL_GAN_UPDATE);
+14. train_bf16: v2 (2D) and v5_preblock at full width with
+   `compute_dtype="bfloat16"`: one B=16 loss and gradient against float32
+   on the same weights, batch and draws within the JAX gate's bounds
+   (`tests/test_train_bf16.py`: loss 2%, cosine 0.99, norm ratio
+   0.8-1.25), then an epoch of three steps through `Trainer` in bf16 and in
+   float32 (finite losses, K6 once a step and no other kernel, parameters
+   and Adam float32, step walls and peak memory).
 
 Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
 entry each) and the card line come before the last, which is
@@ -1234,6 +1255,459 @@ def eval_phase(card, dev, counters, plains):
     return total
 
 
+# ---- phase 13 (`train_vocoder`) and phase 14 (`train_bf16`) -----------------
+# card against CPU on one full-width GAN step at B=2 (TF32 off): the five
+# metrics' relative distance and, for each parameter tree, the distance of
+# the card's update (new - old) from the CPU's, relative L2 over the tree
+# (about 10x what the first run read on an NVIDIA H100 80GB HBM3 at 700 W:
+# metrics 1.08e-6; updates 7.6e-3 for the generator and 2.9e-3 for the
+# discriminators, where Adam's first step, lr * g / (|g| + eps), flips the
+# whole step of any element whose gradient's sign the two devices round apart)
+TOL_GAN_METRIC = 1e-5
+TOL_GAN_UPDATE = 7.5e-2
+VOC_STEPS = 10
+VOC_FT_STEPS = 2
+
+
+def write_vocoder_corpus(root, n=24):
+    """`n` seeded 22.05 kHz int16 wavs of 1-4 s under `root/wavs`: a few
+    harmonics with a vibrato and noise, as a voice's spectrum is shaped."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    r = np.random.default_rng(31)
+    (root / "wavs").mkdir(parents=True)
+    for i in range(n):
+        t = np.arange(int(22050 * r.uniform(1.0, 4.0))) / 22050.0
+        f0 = r.uniform(90, 260) * (1 + 0.03 * np.sin(2 * np.pi * r.uniform(3, 7) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 22050.0
+        wav = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.3
+        wav = wav + 0.02 * r.standard_normal(t.size)
+        wavfile.write(root / "wavs" / f"voc{i:02d}.wav", 22050,
+                      (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+
+
+def train_vocoder_phase(card, dev, counters, plains):
+    """Phase 13 (`train_vocoder`): `cli.train_vocoder.main` at its defaults
+    (V1 generator, 512 channels, MPD + MSD, segment 8192, B=16) for
+    VOC_STEPS steps on a seeded corpus, then a VOC_FT_STEPS-step fine-tune
+    from `--init-ckpt` on base mels; K4/K5 launches held to steps x (3, 2);
+    the fast `wav_hat` against the module path; one B=2 step card against
+    CPU; step walls, peak memory, one profiled step. Returns the K1-K5
+    launches of the two CLI runs."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arttts_tpu_torch.audio.mel import MelSpectrogram
+    from arttts_tpu_torch.cli import train_vocoder as cli_voc
+    from arttts_tpu_torch.core.checkpoint import load_vocoder_checkpoint
+    from arttts_tpu_torch.audio.io import load_wav
+    from arttts_tpu_torch.data.vocoder_dataset import VocoderSegmentDataset
+    from arttts_tpu_torch.models.hifigan import HiFiGANGenerator, hifigan_forward_fast
+    from arttts_tpu_torch.train.vocoder_trainer import VocoderGAN
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_vocoder"
+    shutil.rmtree(root, ignore_errors=True)
+    failures = []
+    t0 = time.perf_counter()
+    write_vocoder_corpus(root)
+    mel = MelSpectrogram(device=dev)
+    (root / "base_mels").mkdir()
+    wav_paths = sorted((root / "wavs").glob("*.wav"))
+    for p in wav_paths:  # the "acoustic model's" mels: here the wavs' own
+        w = load_wav(p)[0]
+        np.save(root / "base_mels" / f"{p.stem}.npy", mel(w[: len(w) // 256 * 256]).cpu().numpy())
+    corpus_s = time.perf_counter() - t0
+
+    walls, metrics = [], []
+    orig_step = VocoderGAN.train_step
+
+    def timed_step(self, batch):  # host clock around a step that ends in a sync
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = orig_step(self, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return m
+
+    runs, total = [], dict.fromkeys((f.__name__ for f in counters), 0)
+    VocoderGAN.train_step = timed_step
+    try:
+        for name, extra, steps in (
+                ("train", ["--out-dir", str(root / "ckpt"), "--steps", str(VOC_STEPS),
+                           "--save-every", str(VOC_STEPS)], VOC_STEPS),
+                ("fine_tune", ["--out-dir", str(root / "ft"), "--steps", str(VOC_FT_STEPS),
+                               "--save-every", "1", "--base-mels-dir", str(root / "base_mels"),
+                               "--init-ckpt", str(root / "ckpt" / f"voc_{VOC_STEPS}")],
+                 VOC_FT_STEPS)):
+            walls.clear()
+            metrics.clear()
+            for f in counters + plains:
+                setattr(f, "launches" if f in counters else "cuda_calls", 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rc = cli_voc.main(["--wav-dir", str(root / "wavs"), "--log-every", "5", *extra])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+            launches = {f.__name__: f.launches for f in counters}
+            plain = {f.__name__: f.cuda_calls for f in plains}
+            for k, v in launches.items():
+                total[k] += v
+            want = {"resblock2d": 0, "downsample2d": 0, "conv_transpose2d": 0,
+                    "mrf_stage": 3 * steps, "upsample1d": 2 * steps}
+            ms = sorted(1e3 * w for w in walls[1:])
+            out = root / ("ckpt" if name == "train" else "ft")
+            files = sorted(p.name for p in out.iterdir())
+            runs.append(dict(run=name, rc=rc, steps=len(walls), cli_wall_s=cli_s,
+                             step_wall_ms=[1e3 * w for w in walls],
+                             median_step_ms_after_first=ms[len(ms) // 2] if ms else None,
+                             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                             first_metrics=metrics[0], last_metrics=metrics[-1],
+                             launches=launches, expected_launches=want,
+                             plain_calls_on_card=plain, checkpoints=files))
+            if rc != 0 or len(walls) != steps:
+                failures.append(f"{name}: rc {rc}, {len(walls)} steps")
+            if launches != want or any(plain.values()):
+                failures.append(f"{name}: launches {launches}, expected {want}; plain {plain}")
+            if not all(math.isfinite(v) for m in metrics for v in m.values()):
+                failures.append(f"{name}: a loss is not finite: {metrics}")
+            need = {f"voc_{VOC_STEPS}"} if name == "train" else {"voc_1", f"voc_{VOC_FT_STEPS}"}
+            if not need <= set(files):
+                failures.append(f"{name}: checkpoints {files}, expected {sorted(need)}")
+    finally:
+        VocoderGAN.train_step = orig_step
+
+    # the discriminator pass's K4/K5 wav_hat against the module path, on the
+    # trained weights and a B=16 batch
+    ck = load_vocoder_checkpoint(str(root / "ckpt" / f"voc_{VOC_STEPS}"))
+    gen = HiFiGANGenerator().to(dev)
+    gen.load_state_dict(ck["gen"])
+    ds = VocoderSegmentDataset([str(p) for p in wav_paths], device=dev)
+    batch = ds.sample_batch(16, np.random.default_rng(3))
+    with torch.no_grad():
+        fast, module = hifigan_forward_fast(gen, batch["mel"]), gen(batch["mel"])
+    wav_err = (fast - module).abs().max().item()
+    if not torch.isfinite(fast).all() or wav_err > TOL_WAV:
+        failures.append(f"wav_hat: K4/K5 against the module path {wav_err} > {TOL_WAV}")
+    del gen, fast, module
+
+    # where a step's time goes, on a fresh GAN at the CLI's defaults: the two
+    # updates by host clock, the generator's own part of (b) alone, and one
+    # step under the profiler
+    gan = VocoderGAN(device=dev, rng=torch.Generator().manual_seed(4))
+    mel_b, wav_b = batch["mel"], batch["wav"]
+
+    def sync_ms(fn, n=3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    def generator_alone():  # (b)'s generator: module forward, mel L1, backward
+        gan.gen_opt.zero_grad(set_to_none=True)
+        w = gan.generator(mel_b)
+        ref = gan.mel(wav_b[:, :, 0]).clone()
+        (gan.mel.differentiable(w[:, :, 0]) - ref).abs().mean().backward()
+
+    gan.train_step(batch)  # warm
+    parts = dict(step_ms=sync_ms(lambda: gan.train_step(batch)),
+                 fast_generator_ms=sync_ms(lambda: hifigan_forward_fast(gan.generator, mel_b)),
+                 disc_update_ms=sync_ms(lambda: gan.disc_step(mel_b, wav_b)),
+                 gen_update_ms=sync_ms(lambda: gan.gen_step(mel_b, wav_b)),
+                 generator_fwd_bwd_ms=sync_ms(generator_alone))
+    disc_ms = (parts["disc_update_ms"] - parts["fast_generator_ms"]
+               + parts["gen_update_ms"] - parts["generator_fwd_bwd_ms"])
+    parts["discriminators_ms_by_subtraction"] = disc_ms
+    parts["discriminators_share_of_step"] = disc_ms / parts["step_ms"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gan.train_step(batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    # the step's device events, each counted once (deduplicated by stream,
+    # start, end and name); the card's busy time is the union of their
+    # intervals. cuDNN runs some convolutions on streams of its own beside
+    # the default stream, so the kernels' summed time exceeds the busy time
+    # by their overlap, shown per stream and per pair of streams
+    raw = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    evs = sorted({(getattr(e, "device_resource_id", 0), e.time_range.start, e.time_range.end,
+                   e.name) for e in raw}, key=lambda e: e[1])
+    kinds = {"K4 mrf_stage": ("mrf_round_kernel",), "K5 upsample1d": ("upsample_kernel",),
+             "convolutions and matmuls (cuDNN, cuBLAS)": ("conv", "cudnn", "xmma", "cutlass",
+                                                          "gemm", "sm90_", "wgrad", "dgrad"),
+             "FFT (the mel's STFT)": ("fft",), "optimizer (Adam, foreach)": ("multi_tensor_apply",),
+             "reductions": ("reduce",), "elementwise": ("elementwise", "vectorized")}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    kern, streams = {}, {}
+    for stream, a, b, name in evs:
+        ms = (b - a) / 1e3
+        kind = [f for f, keys in kinds.items() if any(key in name for key in keys)]
+        by_kind[kind[0] if kind else "other"] += ms
+        t, c = kern.get(name, (0.0, 0))
+        kern[name] = (t + ms, c + 1)
+        st = streams.setdefault(stream, {"ms": 0.0, "events": 0, "by_kernel": {}})
+        st["ms"] += ms
+        st["events"] += 1
+        st["by_kernel"][name[:60]] = st["by_kernel"].get(name[:60], 0.0) + ms
+
+    def union_ms(spans):  # spans sorted by start
+        total, end = 0.0, -math.inf
+        for a, b in spans:
+            total += max(0.0, b - max(a, end))
+            end = max(end, b)
+        return total / 1e3
+
+    overlap, open_ev = {}, []  # open_ev: events still running at the current start
+    for stream, a, b, _ in evs:
+        open_ev = [(s2, b2) for s2, b2 in open_ev if b2 > a]
+        for s2, b2 in open_ev:
+            pair = f"{min(s2, stream)}-{max(s2, stream)}"
+            overlap[pair] = overlap.get(pair, 0.0) + (min(b, b2) - a) / 1e3
+        open_ev.append((stream, b))
+    busy = union_ms([(a, b) for _, a, b, _ in evs])
+    main_stream = max(streams, key=lambda k: streams[k]["events"])
+    main_busy = union_ms([(a, b) for st, a, b, _ in evs if st == main_stream])
+    side_busy = union_ms([(a, b) for st, a, b, _ in evs if st != main_stream])
+    for st in streams.values():
+        st["by_kernel"] = dict(sorted(st["by_kernel"].items(), key=lambda kv: -kv[1])[:3])
+    kernel_sum = sum(ms for ms, _ in kern.values())
+    step_profile = dict(wall_ms_under_profiler=prof_wall_ms,
+                        device_events_listed=len(raw), device_events_distinct=len(evs),
+                        device_kernel_ms_sum=kernel_sum, device_busy_ms=busy,
+                        kernel_launches=len(evs), kernel_ms_by_kind=by_kind,
+                        main_stream=main_stream, main_stream_busy_ms=main_busy,
+                        side_streams_busy_ms=side_busy,
+                        side_streams_beside_main_ms=main_busy + side_busy - busy,
+                        by_stream={str(k): v for k, v in streams.items()},
+                        overlap_ms_by_stream_pair=overlap,
+                        idle_share_under_profiler=1 - busy / prof_wall_ms,
+                        idle_share_of_step=1 - busy / parts["step_ms"],
+                        kernels_by_time=[{"name": k[:90], "ms": ms, "count": c} for k, (ms, c) in
+                                         sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]])
+    if kernel_sum > busy * (1 + 1e-6) and not overlap:
+        failures.append(f"profile: kernels sum to {kernel_sum} ms over {busy} ms busy "
+                        "with no overlap between events")
+    del gan, prof
+
+    # one full-width GAN step at B=2, card against CPU, from the same draws
+    side = {}
+    small = {k: v[:2] for k, v in batch.items()}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        g2 = VocoderGAN(device=d, rng=torch.Generator().manual_seed(5))
+        before = {k: {n: v.clone() for n, v in sd.items()} for k, sd in g2.weights().items()}
+        m = g2.train_step({k: v.to(d) for k, v in small.items()})
+        after = g2.weights()
+        side[name] = dict(metrics={k: float(v) for k, v in m.items()},
+                          move={k: {n: (after[k][n] - before[k][n]).cpu() for n in before[k]}
+                                for k in before})
+        del g2, before, after
+    metric_rel = {k: abs(side["card"]["metrics"][k] - v) / max(abs(v), 1e-30)
+                  for k, v in side["cpu"]["metrics"].items()}
+    update_rel = {}
+    for tree, moves in side["cpu"]["move"].items():
+        num = sum(((side["card"]["move"][tree][n] - v) ** 2).sum().item() for n, v in moves.items())
+        den = sum((v ** 2).sum().item() for v in moves.values())
+        update_rel[tree] = math.sqrt(num / den)
+    card_vs_cpu = dict(B=2, segment=small["wav"].shape[1], metrics_card=side["card"]["metrics"],
+                       metrics_cpu=side["cpu"]["metrics"], metrics_rel_diff=metric_rel,
+                       update_rel_l2=update_rel,
+                       tol=f"metrics rel {TOL_GAN_METRIC}; each tree's update rel L2 "
+                           f"{TOL_GAN_UPDATE}")
+    if (max(metric_rel.values()) > TOL_GAN_METRIC
+            or max(update_rel.values()) > TOL_GAN_UPDATE):
+        failures.append(f"card vs CPU GAN step: {metric_rel} {update_rel}")
+    del side
+
+    emit({"train_vocoder": {
+        "card": card, "corpus": f"{len(wav_paths)} seeded wavs of 1-4 s at 22.05 kHz",
+        "corpus_s": corpus_s, "entry": "cli.train_vocoder.main at its defaults, in process",
+        "config": "V1 generator (512 ch, rates 8 8 2 2, MRF 3 7 11 x 1 3 5), MPD + MSD, "
+                  "segment 8192, B=16",
+        "runs": runs, "wav_hat_vs_module_max_abs": wav_err, "tol_wav": TOL_WAV,
+        "step_parts_ms": parts, "step_profile": step_profile,
+        "card_vs_cpu_gan_step": card_vs_cpu, "launches": total,
+        "phase_s": time.perf_counter() - t_phase}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("train_vocoder: " + "; ".join(failures))
+    return total
+
+
+class SyntheticPairs:
+    """Seeded (x, y) utterances for `Trainer`: T_x ~ U[lo, hi] symbol ids
+    (`n_in` None) or ternary trait vectors of `n_in`, T_y = T_x * U(r0, r1)
+    frames of `rows` features."""
+
+    def __init__(self, n, seed, rows, n_vocab=None, n_in=None, t_x=(100, 190), ratio=(2.5, 4.5)):
+        import numpy as np
+
+        r = np.random.default_rng(seed)
+        tx = r.integers(t_x[0], t_x[1] + 1, n)
+        ty = (tx * r.uniform(*ratio, n)).astype(int)
+        self.items = [{"x": (r.integers(1, n_vocab, a).astype(np.int64) if n_in is None
+                             else r.integers(-1, 2, (a, n_in)).astype(np.float32)),
+                       "y": r.standard_normal((b, rows)).astype(np.float32)}
+                      for a, b in zip(tx, ty)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def lengths(self):
+        import numpy as np
+
+        return np.array([len(it["y"]) for it in self.items])
+
+
+def train_bf16_phase(card, dev, counters, plains, K6):
+    """Phase 14 (`train_bf16`): v2 (2D) and v5_preblock at full width with
+    `compute_dtype="bfloat16"`: one B=16 loss and gradient against float32
+    on the same weights, batch and draws, within the JAX gate's bounds
+    (`tests/test_train_bf16.py`), the estimator in bf16 and the loss or
+    gradient moved by it; then an epoch of three steps through
+    `Trainer` in bf16 and in float32 (finite losses, K6 once a step, no
+    other kernel, step walls and peak memory). Returns the K6 launches of
+    the bf16 epochs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.data.batching import DataLoader
+    from arttts_tpu_torch.models.tts import build_model
+    from arttts_tpu_torch.train import trainer as trainer_mod
+    from arttts_tpu_torch.train.losses import loss_for_model
+    from arttts_tpu_torch.train.step import train_step
+    from arttts_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_train_bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    all_counters = counters + [K6.maximum_path]
+    all_plains = plains + [K6.maximum_path_plain]
+    failures, results = [], {}
+    k6_bf16 = 0
+    walls = []
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = train_step(*a, **k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return m
+
+    trainer_mod.train_step = timed_step
+    try:
+        for preset in ("v2", "v5_preblock"):
+            base = get_preset(preset)
+            m32 = base.model
+            m16 = dataclasses.replace(m32, decoder=dataclasses.replace(
+                m32.decoder, compute_dtype="bfloat16"))
+            if m32.encoder.kind == "text":
+                ds = SyntheticPairs(48, 40, m32.n_feats, n_vocab=m32.encoder.n_vocab)
+            else:
+                ds = SyntheticPairs(48, 41, m32.n_feats, n_in=m32.encoder.n_input_feats,
+                                    t_x=(20, 60), ratio=(4.0, 7.0))
+            out_size = base.train.out_size
+            loader = DataLoader(ds, batch_size=16, shuffle=False, min_frames=out_size)
+            b = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                 for k, v in next(iter(loader)).items()}
+            loss_fn = loss_for_model(m32.name)
+            one = {}
+            for dtype, mcfg in (("float32", m32), ("bfloat16", m16)):
+                model = build_model(mcfg, device=dev, seed=0).train()
+                g = torch.Generator(device=dev).manual_seed(0)
+                total, _ = loss_fn(model, g, b["x"], b["x_lengths"], b["y"], b["y_lengths"],
+                                   out_size=out_size)
+                total.backward()
+                one[dtype] = (total.item(), torch.cat(
+                    [p.grad.double().flatten() for p in model.parameters()]),
+                    model.decoder.estimator.dtype)
+                del model
+            (l32, g32, d32), (l16, g16, d16) = one["float32"], one["bfloat16"]
+            gate = dict(loss_f32=l32, loss_bf16=l16,
+                        loss_rel=abs(l16 - l32) / max(abs(l32), 1.0),
+                        grad_cos=float(g16 @ g32 / (g16.norm() * g32.norm())),
+                        grad_norm_ratio=float(g16.norm() / g32.norm()),
+                        estimator_dtypes=[str(d32), str(d16)],
+                        grad_max_abs_diff=(g16 - g32).abs().max().item())
+            del one, g32, g16
+            if not (gate["loss_rel"] <= 0.02 and gate["grad_cos"] > 0.99
+                    and 0.8 < gate["grad_norm_ratio"] < 1.25):
+                failures.append(f"{preset}: bf16 step outside the JAX gate's bounds: {gate}")
+            # bf16 took effect: the estimator computes in bf16 and the step moved
+            if (d32, d16) != (torch.float32, torch.bfloat16) or (
+                    l16 == l32 and gate["grad_max_abs_diff"] == 0):
+                failures.append(f"{preset}: compute_dtype bfloat16 had no effect: {gate}")
+            epochs = {}
+            for dtype, mcfg in (("float32", m32), ("bfloat16", m16)):
+                exp = dataclasses.replace(base, model=mcfg, train=dataclasses.replace(
+                    base.train, batch_size=16, random_seed=0))
+                for f in all_counters + all_plains:
+                    setattr(f, "launches" if f in all_counters else "cuda_calls", 0)
+                walls.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                trainer = Trainer(exp, ds, device=dev, log_dir=str(root / f"{preset}_{dtype}"))
+                losses = trainer.train_epoch(1)
+                launches = {f.__name__: f.launches for f in all_counters}
+                plain = {f.__name__: f.cuda_calls for f in all_plains}
+                n_steps = len(trainer.train_loader)
+                ms = sorted(1e3 * w for w in walls[1:])
+                epochs[dtype] = dict(
+                    steps=n_steps, step_wall_ms=[1e3 * w for w in walls],
+                    median_step_ms_after_first=ms[len(ms) // 2] if ms else None,
+                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                    losses=losses, launches=launches, plain_calls_on_card=plain,
+                    params_float32=all(p.dtype == torch.float32
+                                       for p in trainer.model.parameters()),
+                    adam_float32=all(t.dtype == torch.float32
+                                     for s in trainer.optimizer.state.values()
+                                     for k, t in s.items() if k != "step"))
+                want = dict.fromkeys(launches, 0)
+                want["maximum_path"] = n_steps
+                if dtype == "bfloat16":
+                    k6_bf16 += launches["maximum_path"]
+                if (n_steps != 3 or launches != want or any(plain.values())
+                        or not all(math.isfinite(v) for v in losses.values())
+                        or not epochs[dtype]["params_float32"]
+                        or not epochs[dtype]["adam_float32"]):
+                    failures.append(f"{preset} {dtype}: {epochs[dtype]}, expected {want}")
+                del trainer
+                torch.cuda.empty_cache()
+            e32, e16 = epochs["float32"], epochs["bfloat16"]
+            results[preset] = dict(
+                rows=m32.n_feats, decoder=m32.decoder.kind, batch_size=16, out_size=out_size,
+                one_step_vs_float32=gate, epochs=epochs,
+                bf16_over_f32_step_wall=(e16["median_step_ms_after_first"]
+                                         / e32["median_step_ms_after_first"]),
+                bf16_over_f32_peak_memory=(e16["max_memory_allocated_bytes"]
+                                           / e32["max_memory_allocated_bytes"]))
+    finally:
+        trainer_mod.train_step = train_step
+    emit({"train_bf16": {"card": card, "gate": "loss rel <= 0.02, grad cosine > 0.99, "
+                         "norm ratio in (0.8, 1.25) (tests/test_train_bf16.py)",
+                         "presets": results, "k6_launches_bf16": k6_bf16,
+                         "phase_s": time.perf_counter() - t_phase}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("train_bf16: " + "; ".join(failures))
+    return k6_bf16
+
+
 def main():
     if not (ROOT / "arttts_tpu_torch" / "csrc").is_dir():
         fail("arttts_tpu_torch/ is not beside chip_smoke.py: run from a checkout")
@@ -1747,6 +2221,13 @@ def main():
         k4_case(f"FiLM C={C}, SPARC window batch", 8, C, 576 * up, film=True, n=2)
     k5_case("128->64, SPARC padding, window batch", 8, 128, 64, 576 * 64, 1, 0)
     k5_case("64->32, SPARC padding, window batch", 8, 64, 32, 576 * 128, 1, 0)
+    # the vocoder trainer's discriminator pass (phase 13): B=16, 32 mel frames
+    # (segment 8192), the three K4 stages and the two K5 upsamples
+    k4_case("training C=128 stage, B=16", 16, 128, 32 * 64)
+    k4_case("training C=64 stage, B=16", 16, 64, 32 * 128)
+    k4_case("training C=32 stage, B=16", 16, 32, 32 * 256)
+    k5_case("training 128->64, B=16", 16, 128, 64, 32 * 64, 1, 0)
+    k5_case("training 64->32, B=16", 16, 64, 32, 32 * 128, 1, 0)
     # edges: two utterances, a ragged T, single k=11 branches over many tiles,
     # and the tap routing at other paddings
     k4_case("B=2", 2, 64, 24576)
@@ -2488,33 +2969,13 @@ def main():
     from arttts_tpu_torch.train.step import make_optimizer, train_step
     from arttts_tpu_torch.train.trainer import Trainer
 
-    class SyntheticLJ:
-        """Seeded text-mel pairs shaped like LJSpeech at v2's rates: T_x ~
-        U[100, 190] symbol ids, T_y = T_x * U(2.5, 4.5) frames of 80-row mel."""
-
-        def __init__(self, n, seed):
-            r = np.random.default_rng(seed)
-            t_x = r.integers(100, 191, n)
-            t_y = (t_x * r.uniform(2.5, 4.5, n)).astype(int)
-            self.items = [{"x": r.integers(1, cfg.encoder.n_vocab, a).astype(np.int64),
-                           "y": r.standard_normal((b, F_)).astype(np.float32)}
-                          for a, b in zip(t_x, t_y)]
-
-        def __len__(self):
-            return len(self.items)
-
-        def __getitem__(self, i):
-            return self.items[i]
-
-        def lengths(self):
-            return np.array([len(it["y"]) for it in self.items])
-
     exp = get_preset("v2")
     log_dir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(log_dir, ignore_errors=True)
     exp = dataclasses.replace(exp, train=dataclasses.replace(
         exp.train, log_dir=str(log_dir), n_epochs=1, save_every=1, val_every=1, random_seed=0))
-    train_ds, valid_ds = SyntheticLJ(48, seed=10), SyntheticLJ(16, seed=11)
+    train_ds = SyntheticPairs(48, 10, F_, n_vocab=cfg.encoder.n_vocab)  # LJSpeech's shape at v2
+    valid_ds = SyntheticPairs(16, 11, F_, n_vocab=cfg.encoder.n_vocab)
     trainer = Trainer(exp, train_ds, valid_dataset=valid_ds, device=dev)
     first = [p.detach().clone() for p in trainer.model.parameters()]
     step_walls = []
@@ -2687,6 +3148,12 @@ def main():
     # ---- 12. eval: encode_audio, the pipelines, the demo, card against CPU ----
     eval_launches = eval_phase(card, dev, counters, plains)
 
+    # ---- 13. train_vocoder: the HiFi-GAN GAN step through cli.train_vocoder ----
+    vocoder_launches = train_vocoder_phase(card, dev, counters, plains)
+
+    # ---- 14. train_bf16: bf16 decoder training against float32 ---------------
+    bf16_train_k6 = train_bf16_phase(card, dev, counters, plains, K6)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -2757,7 +3224,10 @@ def main():
     launches_by_path = {name: {"v2 main path": launches[name], "artic_ms": art_launches[name],
                                "cli": cli_launches[name],
                                "train_presets": train_presets_launches[name],
-                               "eval": eval_launches[name]} for name in meta}
+                               "eval": eval_launches[name],
+                               **({"train_vocoder": vocoder_launches[name]}
+                                  if name in ("mrf_stage", "upsample1d") else {})}
+                        for name in meta}
     for name, (src, replaces, wrappers) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
         ev = [c for c in mine if c["in_eval"]]
@@ -2799,9 +3269,11 @@ def main():
         "name": "maximum_path", "route": "cuda", "source": "arttts_tpu_torch/csrc/mas.cu",
         "replaces": "arttts_tpu/ops/mas_pallas.py:41",
         "tpu_wrappers": ["mas_pallas :180 (_mas_kernel :41, pallas_call :109)"],
-        "launches": train_launches["maximum_path"] + train_presets_launches["maximum_path"],
+        "launches": (train_launches["maximum_path"] + train_presets_launches["maximum_path"]
+                     + bf16_train_k6),
         "launches_by_path": {"training (v2)": train_launches["maximum_path"],
-                             "train_presets": train_presets_launches["maximum_path"]},
+                             "train_presets": train_presets_launches["maximum_path"],
+                             "train_bf16": bf16_train_k6},
         "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
         "exact": all(c["exact_vs_plain"] and c["cells_off_oracle"] == 0 for c in mas_cases),
         "tolerance": "bit for bit against the plain version and the NumPy oracle",

@@ -678,16 +678,18 @@ def test_bf16_masked_norm_padding_invariance():
     assert _rel(out_p[:, :T], out) < 0.02
 
 
-def test_bf16_decoder_serves_on_the_module_path_and_training_raises():
+def test_bf16_decoder_serves_on_the_module_path_and_trains(tmp_path):
     """A bf16 decoder takes no kernel (the JAX package's `unet2d_fast_supported`
     is false for it): `make_score_fn` returns the module path whatever
     `kernel_bf16` says, and its statistics are masked only with
-    `masked_norm`. Training it raises and cites A6; the 1D decoder ignores
-    the field, as in the JAX package."""
+    `masked_norm`. `Trainer` takes it, with float32 parameters and Adam
+    (its step is held against the JAX package's in
+    `tests/test_torch_train_bf16.py`); the 1D decoder ignores the field, as
+    in the JAX package."""
     from arttts_tpu_torch.core.config import get_preset
     from arttts_tpu_torch.models.tts import build_model
     from arttts_tpu_torch.models.unet2d_fast import make_score_fn, masked_statistics
-    from arttts_tpu_torch.train.step import check_trainable
+    from arttts_tpu_torch.train.trainer import Trainer
 
     exp = get_preset("v2")
     cfg = dataclasses.replace(exp.model, decoder=dataclasses.replace(
@@ -702,12 +704,18 @@ def test_bf16_decoder_serves_on_the_module_path_and_training_raises():
     with torch.inference_mode():
         got = make_score_fn(model, 32, kernel_bf16=True)(xt, mask, mu, t)
         assert torch.equal(got, model.estimate_noise(xt, mask, mu, t))
-    with pytest.raises(NotImplementedError, match="A6"):
-        check_trainable(cfg)
-    exp1 = get_preset("v5").model  # the 1D decoder
-    check_trainable(dataclasses.replace(exp1, decoder=dataclasses.replace(
-        exp1.decoder, compute_dtype="bfloat16")))
-    from arttts_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        Trainer(dataclasses.replace(exp, model=cfg), [], device="cpu")
+    class Lengths(list):
+        def lengths(self):
+            return np.array([64, 48])
+
+    trainer = Trainer(dataclasses.replace(exp, model=cfg), Lengths([{}, {}]), device="cpu",
+                      log_dir=str(tmp_path))
+    assert trainer.model.decoder.estimator.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    assert all(p.dtype == torch.float32 for grp in trainer.optimizer.param_groups
+               for p in grp["params"])
+    exp1 = get_preset("v5").model  # the 1D decoder
+    m1 = build_model(dataclasses.replace(exp1, decoder=dataclasses.replace(
+        exp1.decoder, compute_dtype="bfloat16")), device="cpu")
+    assert all(p.dtype == torch.float32 for p in m1.parameters())
