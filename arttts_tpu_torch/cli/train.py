@@ -10,7 +10,16 @@ msml1h `--separate-files`, with the preset's language upsampling unless
 `--language-upsample` says otherwise). Runs on the card (`--device cuda`,
 the default) unless `--device cpu` is asked for; with no card a "cuda" run
 raises. Losses are logged to TensorBoard where `tensorboardX` imports.
-`--mesh` (data parallelism over several devices) is ROADMAP A13 and raises.
+
+`--mesh` trains data-parallel, one process a card, under a launcher:
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m arttts_tpu_torch.cli.train --mesh --preset v2 ...
+
+Each rank joins the process group (NCCL; gloo with `--device cpu`), keeps
+its rows of every global batch of `--batch-size` and steps on the global
+batch's loss (`train/trainer.py`). Without a launcher `--mesh` is a world
+of one.
 """
 
 from __future__ import annotations
@@ -45,23 +54,31 @@ def main(argv=None):
     parser.add_argument("--log-dir")
     parser.add_argument("--epochs", type=int)
     parser.add_argument("--batch-size", type=int)
-    parser.add_argument("--mesh", action="store_true", help="data-parallel over all devices")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel, one rank a device (under torch.distributed.run)")
     parser.add_argument("--language-upsample", type=float,
                         help="temperature-based language upsampling factor "
                              "(e.g. 0.5, multilingual v6/msml1h)")
     parser.add_argument("--resume", nargs="?", const="latest")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (data parallelism) is not ported yet: ROADMAP A13")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+
+    import torch
 
     from arttts_tpu_torch.core.config import get_preset
     from arttts_tpu_torch.core.runtime import setup_runtime
     from arttts_tpu_torch.data.datasets import build_dataset
+    from arttts_tpu_torch.parallel.distributed import init_distributed
+    from arttts_tpu_torch.parallel.mesh import make_mesh
     from arttts_tpu_torch.train.trainer import Trainer
 
-    device = setup_runtime(args.device)
+    mesh = None
+    joined = torch.distributed.is_initialized()
+    if args.mesh:
+        init_distributed(device=None if args.device == "cuda" else args.device)
+        mesh = make_mesh(device_type=torch.device(args.device).type)
+    device = setup_runtime(args.device if mesh is None else mesh.device)
     cfg = get_preset(args.preset)
     overrides = {k: v for k, v in {"batch_size": args.batch_size, "log_dir": args.log_dir}.items()
                  if v}
@@ -73,16 +90,19 @@ def main(argv=None):
                 if args.valid_filelist else None)
     language_upsample = (args.language_upsample if args.language_upsample is not None
                          else (cfg.data.language_upsample or None))
-    writer = tensorboard_writer(cfg.train.log_dir)
+    main_rank = mesh is None or mesh.coords["data"] == 0
+    writer = tensorboard_writer(cfg.train.log_dir) if main_rank else None
     try:
         trainer = Trainer(cfg, train_ds, valid_dataset=valid_ds, tb_writer=writer,
-                          device=device, language_upsample=language_upsample)
+                          device=device, language_upsample=language_upsample, mesh=mesh)
         if args.resume:
             trainer.resume(None if args.resume == "latest" else args.resume)
         trainer.fit(n_epochs=args.epochs)
     finally:
         if writer is not None:
             writer.close()
+        if torch.distributed.is_initialized() and not joined:
+            torch.distributed.destroy_process_group()
     return trainer
 
 

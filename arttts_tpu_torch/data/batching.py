@@ -9,8 +9,10 @@ at once). Multilingual sets (the v6 family) may instead draw their indices
 by temperature-based language upsampling (`voxcommunis/sampler.py`).
 Batches are numpy arrays; the trainer moves them to the card.
 
-Multi-host row slicing is not ported yet (ROADMAP A13): asking for it
-raises.
+Data parallelism (`num_hosts > 1`): every rank walks the same global
+batches (the same seed and epoch give the same order) and keeps its
+contiguous `batch_size / num_hosts` rows of each, padded to fixed buckets
+so that every rank's tensors have one shape.
 """
 
 from __future__ import annotations
@@ -77,15 +79,20 @@ class BucketBatcher:
     Shuffle the indices, split them into mega-batches of
     batch_size * mega_batch_mult, sort each by length, longest first, then
     move the globally longest batch to the front. A last partial batch is
-    dropped."""
+    dropped. With `num_hosts > 1` each global batch yields host `host_id`'s
+    contiguous row slice."""
 
     def __init__(self, lengths: Sequence[int], batch_size: int, shuffle: bool = True,
-                 seed: int = 37):
+                 seed: int = 37, host_id: int = 0, num_hosts: int = 1):
+        if batch_size % num_hosts:
+            raise ValueError(f"global batch_size {batch_size} must divide over {num_hosts} hosts")
         self.lengths = np.asarray(lengths)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.mega_batch_mult = min(len(lengths) // (batch_size * 4), 50) or 1
+        rows = batch_size // num_hosts
+        self.rows = slice(host_id * rows, (host_id + 1) * rows)  # this host's rows
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -115,7 +122,8 @@ class BucketBatcher:
                 range(len(batches)), key=lambda b: self.lengths[batches[b]].max()
             )
             batches[0], batches[longest] = batches[longest], batches[0]
-        yield from batches
+        for b in batches:
+            yield b[self.rows]
 
     def __len__(self) -> int:
         return len(self.lengths) // self.batch_size
@@ -131,6 +139,11 @@ class DataLoader:
     upsample_factor 0.5, msml1h 0.9), cut into full batches of
     `batch_size`.
 
+    `host_id` / `num_hosts` slice every global batch to one rank's rows
+    (data parallelism); several hosts need fixed `text_bucket` and
+    `frame_bucket` pad lengths, as buckets picked from each rank's rows
+    would give the ranks tensors of other shapes and hang the collectives.
+
     Upcoming batches are assembled on a background thread, `prefetch` at
     most ahead (a bounded queue), so the host's batching overlaps the
     card's steps."""
@@ -142,18 +155,25 @@ class DataLoader:
         shuffle: bool = True,
         seed: int = 37,
         min_frames: Optional[int] = None,
+        host_id: int = 0,
         num_hosts: int = 1,
         prefetch: int = 2,
         language_upsample: Optional[float] = None,
+        text_bucket: Optional[int] = None,
+        frame_bucket: Optional[int] = None,
     ):
-        if num_hosts > 1:
-            raise NotImplementedError("multi-host batching is not ported yet: ROADMAP A13")
+        if num_hosts > 1 and not (text_bucket and frame_bucket):
+            raise ValueError("a multi-host DataLoader needs fixed text_bucket and frame_bucket "
+                             "(e.g. config.data.max_text_len / max_frame_len)")
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         self.dataset = dataset
         self.batch_size = batch_size
         lengths = dataset.lengths()
-        self.batcher = BucketBatcher(lengths, batch_size, shuffle=shuffle, seed=seed)
+        self.batcher = BucketBatcher(lengths, batch_size, shuffle=shuffle, seed=seed,
+                                     host_id=host_id, num_hosts=num_hosts)
+        self.text_buckets = (text_bucket,) if text_bucket else DEFAULT_TEXT_BUCKETS
+        self.frame_buckets = (frame_bucket,) if frame_bucket else DEFAULT_FRAME_BUCKETS
         self.lang_sampler = None
         if language_upsample is not None:
             if not getattr(dataset, "lang_sizes", None):
@@ -168,14 +188,15 @@ class DataLoader:
         self.batcher.set_epoch(epoch)
 
     def _make_batch(self, idx):
-        return pad_batch([self.dataset[int(i)] for i in idx], min_frames=self.min_frames)
+        return pad_batch([self.dataset[int(i)] for i in idx], self.text_buckets,
+                         self.frame_buckets, min_frames=self.min_frames)
 
     def _index_batches(self):
         if self.lang_sampler is None:
             return self.batcher
         order = np.fromiter(iter(self.lang_sampler), dtype=np.int64)
         n = self.batch_size
-        return [order[i: i + n] for i in range(0, len(order) - n + 1, n)]
+        return [order[i: i + n][self.batcher.rows] for i in range(0, len(order) - n + 1, n)]
 
     def __iter__(self):
         import queue

@@ -20,6 +20,14 @@ reference protocol), Heun (`reverse_diffusion_heun`, two evaluations a
 step) or DPM-Solver++(2M) (`reverse_diffusion_dpm2m`, one a step); all
 three call the same score function.
 
+`mesh` (`parallel/mesh.py`) with a "model" axis of n > 1 runs the decode
+sequence-parallel, as the JAX `synthesize(mesh=...)`: the diffusion state
+is cut into n contiguous frame chunks, one a rank, after the path is built;
+the solver's updates are local and the score function exchanges halos and
+statistics (`models/unet2d_sp.py`); the output is gathered back, so every
+rank returns the whole (B, max_frames, n_feats). Every rank must pass the
+same inputs and a generator in the same state.
+
 `kernel_bf16=True` runs the kernels (K1-K3 in the score network, K4 in the
 vocoder) in the JAX kernels' bf16 mode, which the JAX package's TPU serving
 path takes by default for K1-K3: bf16 operands in every product, float32
@@ -40,6 +48,7 @@ from arttts_tpu_torch.models.diffusion_sde import get_noise
 from arttts_tpu_torch.models.hifigan import hifigan_forward_fast
 from arttts_tpu_torch.models.unet2d_fast import make_score_fn
 from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, sequence_mask
+from arttts_tpu_torch.parallel.mesh import Collectives, local_slice
 
 
 def _on(device, *tensors):
@@ -47,19 +56,26 @@ def _on(device, *tensors):
     return [None if t is None else torch.as_tensor(t).to(dev) for t in tensors]
 
 
+def _shards(mesh) -> int:
+    """Ranks the frame axis is split over."""
+    return 1 if mesh is None else mesh.shape["model"]
+
+
 @torch.inference_mode()
 def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, spk=None,
                       generator: Optional[torch.Generator] = None, score_fn=None,
-                      kernel_bf16: bool = False):
+                      kernel_bf16: bool = False, mesh=None):
     """Euler reverse-SDE (stoc) or probability-flow ODE sampler.
 
-    z, mu: (B, T, C); mask: (B, T, 1). `generator` draws the stochastic
-    increments (required with `stoc`)."""
+    z, mu: (B, T, C); mask: (B, T, 1); with `mesh`, this rank's chunk of the
+    frame axis. `generator` draws the stochastic increments (required with
+    `stoc`), for the whole sequence, of which each rank keeps its chunk."""
     dec = model.config.decoder
     h = 1.0 / n_timesteps
     B = z.shape[0]
+    T = z.shape[1] * _shards(mesh)
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
+        score_fn = make_score_fn(model, T=T, kernel_bf16=kernel_bf16, mesh=mesh)
     if stoc and generator is None:
         raise ValueError("stoc=True needs a generator")
     xt = z * mask
@@ -69,7 +85,10 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
         score = score_fn(xt, mask, mu, t, spk)
         if stoc:
             dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
-            eps = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            eps = torch.randn((B, T, z.shape[2]), generator=generator, dtype=z.dtype,
+                              device=z.device)
+            if mesh is not None:
+                eps = eps[:, local_slice(mesh, "model", T)]
             dxt = dxt_det + eps * torch.sqrt(noise_t * h)
         else:
             dxt = 0.5 * (mu - xt - score) * noise_t * h
@@ -79,16 +98,17 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
 
 @torch.inference_mode()
 def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score_fn=None,
-                           kernel_bf16: bool = False):
+                           kernel_bf16: bool = False, mesh=None):
     """Second-order (Heun) probability-flow ODE sampler: the ODE of
     `reverse_diffusion` (stoc=False), dx/dt = -0.5 * beta(t) * (mu - x -
     score(x, t)), from t=1 to t=0 on a uniform midpoint grid, two score
-    evaluations a step."""
+    evaluations a step. `mesh` as `reverse_diffusion`."""
     dec = model.config.decoder
     h = 1.0 / n_timesteps
     B = z.shape[0]
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
+        score_fn = make_score_fn(model, T=z.shape[1] * _shards(mesh), kernel_bf16=kernel_bf16,
+                                 mesh=mesh)
 
     def drift(xt, t_scalar):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
@@ -145,18 +165,21 @@ def dpm2m_schedule(beta_min: float, beta_max: float, n_timesteps: int,
 
 @torch.inference_mode()
 def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
-                            t_end: float = 1e-2, score_fn=None, kernel_bf16: bool = False):
+                            t_end: float = 1e-2, score_fn=None, kernel_bf16: bool = False,
+                            mesh=None):
     """DPM-Solver++(2M) for the probability-flow ODE: one score evaluation
     a step, multistep second order, with a first-order denoise-to-x0 final
     step. The model's score s gives the data prediction x0 = (y +
     sigma_t^2 * s) / alpha_t. `n_timesteps` counts evaluations (>= 2); the
-    schedule is float64 NumPy (`dpm2m_schedule`), cast to z's type."""
+    schedule is float64 NumPy (`dpm2m_schedule`), cast to z's type. `mesh`
+    as `reverse_diffusion`."""
     consts = torch.as_tensor(
         dpm2m_schedule(model.config.decoder.beta_min, model.config.decoder.beta_max,
                        n_timesteps, t_end), dtype=z.dtype).tolist()
     B = z.shape[0]
     if score_fn is None:
-        score_fn = make_score_fn(model, T=z.shape[1], kernel_bf16=kernel_bf16)
+        score_fn = make_score_fn(model, T=z.shape[1] * _shards(mesh), kernel_bf16=kernel_bf16,
+                                 mesh=mesh)
 
     def score_x0(y, t_scalar, sig, alp):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
@@ -200,11 +223,12 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
                              n_timesteps: int, max_frames: int, temperature: float = 1.0,
                              stoc: bool = False, length_scale: float = 1.0,
                              x_durations=None, device="cuda", spk=None,
-                             solver: str = "euler", kernel_bf16: bool = False):
+                             solver: str = "euler", kernel_bf16: bool = False, mesh=None):
     """Durations -> path -> mu_y -> z ~ N(mu_y, I/temperature) -> reverse
     diffusion (`solver` "heun" or "dpm"; any other name runs Euler, as the
     JAX package does). Returns (mu_y, dec, attn, y_lengths); mu_y and dec
-    are (B, max_frames, n_feats), masked past y_lengths."""
+    are (B, max_frames, n_feats), masked past y_lengths. With `mesh` (see
+    the module note) `max_frames` must divide by its "model" axis."""
     mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations, spk)
     check_module(model, device)
     if x_durations is not None:
@@ -219,13 +243,19 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
     noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
     z = mu_y + noise / temperature
-    kb = dict(kernel_bf16=kernel_bf16)
+    kb = dict(kernel_bf16=kernel_bf16, mesh=mesh)
+    z_l, m_l, mu_l = z, y_mask, mu_y
+    if _shards(mesh) > 1:  # this rank's chunk of the frame axis
+        cut = local_slice(mesh, "model", max_frames)
+        z_l, m_l, mu_l = z[:, cut], y_mask[:, cut], mu_y[:, cut]
     if solver == "heun":
-        dec = reverse_diffusion_heun(model, z, y_mask, mu_y, n_timesteps, spk, **kb)
+        dec = reverse_diffusion_heun(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
     elif solver == "dpm":
-        dec = reverse_diffusion_dpm2m(model, z, y_mask, mu_y, n_timesteps, spk, **kb)
+        dec = reverse_diffusion_dpm2m(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
     else:
-        dec = reverse_diffusion(model, z, y_mask, mu_y, n_timesteps, stoc, spk, generator, **kb)
+        dec = reverse_diffusion(model, z_l, m_l, mu_l, n_timesteps, stoc, spk, generator, **kb)
+    if _shards(mesh) > 1:
+        dec = Collectives(mesh, "model").gather(dec, dim=1)
     return mu_y * y_mask, dec * y_mask, attn, y_lengths
 
 
@@ -233,16 +263,16 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
 def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int,
                max_frames: int, temperature: float = 1.0, stoc: bool = False,
                length_scale: float = 1.0, x_durations=None, device="cuda", spk=None,
-               solver: str = "euler", kernel_bf16: bool = False):
+               solver: str = "euler", kernel_bf16: bool = False, mesh=None):
     """Inputs (B, T_x) ids or (B, T_x, n_input_feats) traits -> (mu_y, dec,
-    attn, y_lengths)."""
+    attn, y_lengths); `mesh` as `synthesize_from_encoding`."""
     x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
     mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
     return synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
         stoc, length_scale, x_durations, device, spk=spk, solver=solver,
-        kernel_bf16=kernel_bf16,
+        kernel_bf16=kernel_bf16, mesh=mesh,
     )
 
 

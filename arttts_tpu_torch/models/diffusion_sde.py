@@ -39,13 +39,15 @@ def forward_diffusion(generator: Optional[torch.Generator], x0, mask, mu, t,
 
 
 def diffusion_loss_from_estimate(noise_estimate, z, mask, t, n_feats: int,
-                                 beta_min: float, beta_max: float):
+                                 beta_min: float, beta_max: float, denominator=None):
     """Lambda-weighted score matching:
-    || sqrt(1 - exp(-cum_noise)) * estimate + z ||^2 / (sum(mask) * n_feats)."""
+    || sqrt(1 - exp(-cum_noise)) * estimate + z ||^2 / (sum(mask) * n_feats),
+    or over `denominator` when given (a data-parallel step's global count)."""
     time = t[:, None, None]
     cum_noise = get_noise(time, beta_min, beta_max, cumulative=True)
     weighted = noise_estimate * torch.sqrt(1.0 - torch.exp(-cum_noise))
-    return torch.sum((weighted + z) ** 2) / (torch.sum(mask) * n_feats)
+    den = torch.sum(mask) * n_feats if denominator is None else denominator
+    return torch.sum((weighted + z) ** 2) / den
 
 
 def sample_t(generator: torch.Generator, batch: int, offset: float = 1e-5,

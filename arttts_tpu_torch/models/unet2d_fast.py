@@ -169,7 +169,7 @@ def score2d_fast(kw: KernelWeights, xt, mask, mu, t, spk_emb=None, *, masked_sta
     return (out * mask.transpose(1, 2)).transpose(1, 2)
 
 
-def make_score_fn(model, T: int, kernel_bf16: bool = False) -> Callable:
+def make_score_fn(model, T: int, kernel_bf16: bool = False, mesh=None) -> Callable:
     """The score function the sampler calls at frame bucket T:
     (xt, mask, mu, t, spk) -> (B, T, n_feats). A 2D U-Net decoder runs
     through the kernels at every bucket, with the GroupNorm statistics the
@@ -178,8 +178,23 @@ def make_score_fn(model, T: int, kernel_bf16: bool = False) -> Callable:
     which no kernel covers (the JAX package's `unet2d_fast_supported` is
     false for them), run the module (`model.estimate_noise`), whatever
     `kernel_bf16` says. `spk` is the raw speaker input
-    (`model.embed_speaker`'s argument)."""
+    (`model.embed_speaker`'s argument).
+
+    `mesh` with a "model" axis of n > 1 (sequence parallelism): the
+    function takes and gives this rank's chunk of T / n frames, as the JAX
+    dispatch routes it (`arttts_tpu/models/unet2d_fast.py:522-533`): the SP
+    path where `unet2d_sp_supported` holds, else the module path on the
+    gathered sequence. Both are float32 (the JAX SP path is), so
+    `kernel_bf16` raises there."""
     cfg = model.config
+    if mesh is not None and mesh.shape["model"] > 1:
+        from arttts_tpu_torch.models import unet2d_sp
+
+        if kernel_bf16:
+            raise ValueError("the sequence-parallel score function is float32 only")
+        if unet2d_sp.unet2d_sp_supported(cfg, T, mesh.shape["model"]):
+            return unet2d_sp.make_sp_score_fn(model, T, mesh)
+        return unet2d_sp.make_gathered_score_fn(model, mesh)
     if (cfg.decoder.kind in ("unet1d", "unet1d_preblock")
             or cfg.decoder.compute_dtype != "float32"):
         return lambda xt, mask, mu, t, spk=None: model.estimate_noise(xt, mask, mu, t, spk)

@@ -6,6 +6,8 @@ masks are `(B, T)` here and callers add the trailing axis.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -31,7 +33,9 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (path - prev) * mask
 
 
-def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
-    """MSE between log-durations, normalised by the total token count."""
-    return torch.sum((logw - logw_hat) ** 2) / torch.sum(lengths)
+def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor, lengths: torch.Tensor,
+                  denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE between log-durations, normalised by the total token count
+    (`denominator` when given: a data-parallel step's global count)."""
+    den = torch.sum(lengths) if denominator is None else denominator
+    return torch.sum((logw - logw_hat) ** 2) / den

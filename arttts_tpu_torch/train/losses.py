@@ -18,6 +18,12 @@ Every draw (dropout masks, segment offsets, diffusion time t, noise z) comes
 from the one `torch.Generator` the caller passes, in that order. `pinned`
 overrides the last three for parity tests. Whether the encoder's dropout
 acts is the model's mode (`model.train()` / `model.eval()`).
+
+Each part divides a sum over the batch by a count over the batch (tokens,
+or valid frames times n_feats). A data-parallel step passes the counts of
+the global batch (`denominators`, from `loss_denominators` summed over
+the ranks), so each rank's parts are its share of the global batch's
+loss, as the JAX package's sharded step computes it.
 """
 
 from __future__ import annotations
@@ -72,17 +78,26 @@ def cut_segments(generator: Optional[torch.Generator], y, attn, y_lengths, out_s
     return y_cut * y_cut_mask, attn_cut * y_cut_mask[:, None, :, 0], y_cut_mask
 
 
-def prior_loss_fn(y, mu_y, y_mask, n_feats: int):
-    """Gaussian prior negative log-likelihood per valid value."""
+def prior_loss_fn(y, mu_y, y_mask, n_feats: int, denominator=None):
+    """Gaussian prior negative log-likelihood per valid value (over
+    `denominator` values when given)."""
     loss = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi)) * y_mask)
-    return loss / (torch.sum(y_mask) * n_feats)
+    return loss / (torch.sum(y_mask) * n_feats if denominator is None else denominator)
+
+
+def loss_denominators(x_lengths, y_lengths, out_size: Optional[int], n_feats: int):
+    """The counts the parts divide by, from the batch alone: (tokens, valid
+    values), the values those of the `out_size`-frame segments (the whole
+    sequences when None) times n_feats. float32 (2,)."""
+    frames = y_lengths if out_size is None else torch.clamp(y_lengths, max=out_size)
+    return torch.stack([x_lengths.sum(), frames.sum() * n_feats]).to(torch.float32)
 
 
 def _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
-                         out_size, pinned):
+                         out_size, pinned, values=None):
     """The parts both losses share, after the alignment: the segment cut,
-    the aligned prior mu_y, and the diffusion and prior losses. Returns
-    (prior, diff)."""
+    the aligned prior mu_y, and the diffusion and prior losses over
+    `values` valid values (None: this batch's). Returns (prior, diff)."""
     t_pin = z_pin = off_pin = None
     if pinned is not None:
         t_pin, z_pin, off_pin = pinned
@@ -103,13 +118,14 @@ def _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk
                               dec.beta_max, z=z_pin)
     noise_est = model.estimate_noise(xt, y_seg_mask, mu_y, t, spk)
     diff = diffusion_loss_from_estimate(noise_est, z, y_seg_mask, t, n_feats, dec.beta_min,
-                                        dec.beta_max)
-    prior = prior_loss_fn(y_seg, mu_y, y_seg_mask, n_feats)
+                                        dec.beta_max, values)
+    prior = prior_loss_fn(y_seg, mu_y, y_seg_mask, n_feats, values)
     return prior, diff
 
 
 def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, y_lengths,
-                  spk=None, durations=None, out_size: Optional[int] = None, pinned=None):
+                  spk=None, durations=None, out_size: Optional[int] = None, pinned=None,
+                  denominators=None):
     """(total, {"dur_loss", "prior_loss", "diff_loss"}) of one batch.
 
     `spk` is a multi-speaker model's raw speaker input (None otherwise).
@@ -117,7 +133,9 @@ def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, 
     signature of `grad_ttartic_loss`. `out_size` cuts a random segment of
     that many frames for the prior and diffusion parts (None: the full
     sequences, as validation runs). `pinned` is an optional
-    (t, z, offsets) triple overriding the draws."""
+    (t, z, offsets) triple overriding the draws. `denominators` (tokens,
+    values) replaces this batch's counts (see the module note)."""
+    tokens, values = (None, None) if denominators is None else denominators
     mu_x, logw, x_mask = model.encode(x, x_lengths, spk, generator=generator)
     y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
 
@@ -127,16 +145,16 @@ def grad_tts_loss(model, generator: Optional[torch.Generator], x, x_lengths, y, 
         attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
 
     logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[:, :, None] * x_mask
-    dur = duration_loss(logw, logw_hat, x_lengths)
+    dur = duration_loss(logw, logw_hat, x_lengths, tokens)
     prior, diff = _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
-                                       out_size, pinned)
+                                       out_size, pinned, values)
     total = dur + prior + diff
     return total, {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff}
 
 
 def grad_ttartic_loss(model, generator: Optional[torch.Generator], x, x_lengths, y,
                       y_lengths, spk=None, durations=None, out_size: Optional[int] = None,
-                      pinned=None):
+                      pinned=None, denominators=None):
     """(total, {"prior_loss", "diff_loss"}) of one batch of the aligned-input
     multi-speaker model: the alignment is the 0/1 path of `durations`
     (B, T_x) frame counts from the forced alignments (input channel 26), so
@@ -147,8 +165,9 @@ def grad_ttartic_loss(model, generator: Optional[torch.Generator], x, x_lengths,
     y_mask = sequence_mask(y_lengths, y.shape[1]).to(mu_x.dtype)[:, :, None]
     attn_mask = x_mask[:, :, 0:1] * y_mask[:, None, :, 0]
     attn = generate_path(durations, attn_mask)
+    values = None if denominators is None else denominators[1]
     prior, diff = _prior_and_diffusion(model, generator, mu_x, y, y_lengths, y_mask, attn, spk,
-                                       out_size, pinned)
+                                       out_size, pinned, values)
     return prior + diff, {"prior_loss": prior, "diff_loss": diff}
 
 

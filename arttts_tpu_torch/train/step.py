@@ -17,6 +17,16 @@ gives float32 gradients and Adam's moments stay float32; the time
 embedding's phases stay float32. The 1D decoder ignores the field.
 
 The metrics stay on the device: nothing in a step waits for the card.
+
+Data parallelism (`ddp=data_parallel(model, loss_fn, group)`): each rank
+holds its rows of the global batch and the step computes what the JAX
+sharded step computes, the loss of the global batch. The loss parts divide
+by counts of the whole batch (`train/losses.py:loss_denominators`), so the
+ranks all-reduce their counts first; each rank then backpropagates
+world_size * (its numerators / the global counts), and DDP's gradient mean
+is the global loss's gradient. The reported parts are all-reduced, the
+same on every rank, and the clip and the norm act on the all-reduced
+gradients, so every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -24,8 +34,10 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
-from arttts_tpu_torch.train.losses import grad_tts_loss
+from arttts_tpu_torch.train.losses import grad_tts_loss, loss_denominators
 
 # The reference clips only the encoder and decoder parameter groups; the
 # speaker modules (GradTTArtic's speaker encoding layer, the embedding table
@@ -60,29 +72,70 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _loss(loss_fn, model, generator, batch, out_size, pinned=None):
+def _loss(loss_fn, model, generator, batch, out_size, pinned=None, denominators=None):
     return loss_fn(model, generator, batch["x"], batch["x_lengths"], batch["y"],
                    batch["y_lengths"], spk=batch.get("spk"), durations=batch.get("durations"),
-                   out_size=out_size, pinned=pinned)
+                   out_size=out_size, pinned=pinned, denominators=denominators)
+
+
+class StepLoss(torch.nn.Module):
+    """The step's loss as a module. DDP prepares its gradient all-reduce in
+    the `forward` of the module it wraps, and the losses call
+    `model.encode` and the decoder rather than `model.forward`."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch, generator, out_size, pinned, denominators):
+        return _loss(self.loss_fn, self.model, generator, batch, out_size, pinned, denominators)
+
+
+def data_parallel(model: torch.nn.Module, loss_fn: Callable,
+                  group: Optional[dist.ProcessGroup] = None) -> DistributedDataParallel:
+    """`model`'s loss under DDP over `group` (None: the default group); the
+    model's parameters are broadcast from the group's first rank. Every
+    preset's model gives every parameter a gradient, so DDP looks for no
+    unused ones."""
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(StepLoss(model, loss_fn),
+                                   device_ids=[dev.index] if dev.type == "cuda" else None,
+                                   process_group=group)
 
 
 def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator], out_size: Optional[int],
-               grad_clip_norm: float = 1.0,
-               loss_fn: Callable = grad_tts_loss) -> Dict[str, torch.Tensor]:
+               grad_clip_norm: float = 1.0, loss_fn: Callable = grad_tts_loss,
+               ddp: Optional[DistributedDataParallel] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step of `loss_fn` on a batch of tensors on the model's
     device ({"x", "x_lengths", "y", "y_lengths"[, "spk", "durations"]}; with
     "pinned_t", "pinned_z", "pinned_offsets" the loss's draws are those).
     Puts the model in training mode. Returns the loss parts, `total_loss`
     and `grad_norm` (the norm of all gradients before the clip), as device
-    scalars."""
+    scalars. `ddp` (`data_parallel(model, loss_fn, group)`): `batch` is this
+    rank's rows of a global batch, and the step is the global batch's (see
+    the module note)."""
     model.train()
     pinned = None
     if "pinned_t" in batch:
         pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
     optimizer.zero_grad(set_to_none=True)
-    total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
-    total.backward()
+    if ddp is None:
+        total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
+        total.backward()
+    else:
+        dens = loss_denominators(batch["x_lengths"], batch["y_lengths"], out_size,
+                                 model.config.n_feats)
+        dist.all_reduce(dens, group=ddp.process_group)
+        total, parts = ddp(batch, generator, out_size, pinned, dens)
+        (dist.get_world_size(ddp.process_group) * total).backward()
+        # this rank's shares of the global parts -> the global parts
+        names = list(parts)
+        shares = torch.stack([parts[k].detach() for k in names])
+        dist.all_reduce(shares, group=ddp.process_group)
+        parts = dict(zip(names, shares.unbind()))
+        total = shares.sum()
     grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
     per_submodule_clip(model, grad_clip_norm)
     optimizer.step()

@@ -17,8 +17,19 @@ as a dataset.
 
 With `steps_per_dispatch > 1` the JAX package scans K steps in one launch;
 its own tests hold that the same trajectory as K sequential steps, and here
-every batch takes its step in turn. Multi-host data parallelism waits for
-ROADMAP A13.
+every batch takes its step in turn.
+
+Data parallelism (`mesh=` with a "data" axis of n > 1, one process a
+device, `cli/train.py --mesh` under `torch.distributed.run`): rank i of
+the axis batches its rows of the same global batches at the fixed buckets
+`config.data.max_text_len` / `max_frame_len`, draws from its own
+generator (seed + i), and steps on the global batch's loss
+(`train/step.py`, K6 on its rows; DDP broadcasts rank 0's parameters
+when it wraps the model). Every rank validates on the whole validation
+set, as the JAX trainer does; the early-stopping decision is taken on
+losses averaged over the ranks, so all leave the loop together; rank 0
+alone logs, synthesises the samples and writes the checkpoints, each
+followed by a barrier, and every rank resumes from the same files.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from arttts_tpu_torch.core.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from arttts_tpu_torch.core.config import ExperimentConfig
@@ -39,7 +51,7 @@ from arttts_tpu_torch.eval.metrics import normalized_dtw_score
 from arttts_tpu_torch.models.tts import build_model
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
 from arttts_tpu_torch.train.losses import loss_for_model
-from arttts_tpu_torch.train.step import eval_step, make_optimizer, train_step
+from arttts_tpu_torch.train.step import data_parallel, eval_step, make_optimizer, train_step
 from arttts_tpu_torch.utils.early_stopping import EarlyStopping
 
 log = logging.getLogger("arttts_tpu_torch.train")
@@ -55,31 +67,50 @@ class Trainer:
         tb_writer=None,
         device="cuda",
         language_upsample: Optional[float] = None,
+        mesh=None,
     ):
         """`tb_writer`: a TensorBoard-style writer (`add_scalar`,
-        `add_image`), or None for no logging there. The model is built from
-        `config.train.random_seed` on `device`. `language_upsample`: the
-        training loader's language upsampling factor (None: off)."""
+        `add_image`), or None for no logging there (rank 0's is used, the
+        others' ignored). The model is built from `config.train.random_seed`
+        on `device`. `language_upsample`: the training loader's language
+        upsampling factor (None: off). `mesh` (`parallel/mesh.py`): data
+        parallelism over its "data" axis (see the module note)."""
         self.config = config
         self.loss_fn = loss_for_model(config.model.name)
         self.device = resolve(device)
         t = config.train
         self.model = build_model(config.model, device=self.device, seed=t.random_seed).train()
         self.optimizer = make_optimizer(self.model, t.learning_rate)
+        host_id, num_hosts = (0, 1) if mesh is None else (mesh.coords["data"],
+                                                            mesh.shape["data"])
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError(f"the trainer shards the batch only, got a mesh of {mesh.shape}")
+        self.is_main = host_id == 0
+        self.ddp = None
+        if num_hosts > 1:
+            self.ddp = data_parallel(self.model, self.loss_fn, mesh.groups["data"])
+            if t.steps_per_dispatch > 1:
+                log.warning("steps_per_dispatch=%d: with %d hosts each batch takes its step "
+                            "in turn", t.steps_per_dispatch, num_hosts)
         self.log_dir = Path(log_dir or t.log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.tb = tb_writer
+        self.tb = tb_writer if self.is_main else None
+        # several hosts: fixed pad shapes, so that every rank's batch has one shape
+        fixed = num_hosts > 1
         self.train_loader = DataLoader(train_dataset, batch_size=t.batch_size,
                                        seed=t.random_seed, min_frames=t.out_size,
-                                       language_upsample=language_upsample)
+                                       host_id=host_id, num_hosts=num_hosts,
+                                       language_upsample=language_upsample,
+                                       text_bucket=config.data.max_text_len if fixed else None,
+                                       frame_bucket=config.data.max_frame_len if fixed else None)
         self.valid_loader = (
             DataLoader(valid_dataset, batch_size=t.batch_size, shuffle=False,
                        min_frames=t.out_size)
             if valid_dataset is not None else None
         )
         self.valid_dataset = valid_dataset
-        # every draw of training (dropout, segment offsets, t, z)
-        self.generator = torch.Generator(device=self.device).manual_seed(t.random_seed)
+        # every draw of training (dropout, segment offsets, t, z); each rank its own
+        self.generator = torch.Generator(device=self.device).manual_seed(t.random_seed + host_id)
         self.early_stopping = EarlyStopping(patience=t.patience, step_size=t.save_every)
         self.start_epoch = 1
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -104,10 +135,16 @@ class Trainer:
         log.info("Resumed from %s at epoch %d", path, self.start_epoch)
         return self.start_epoch
 
+    def _barrier(self) -> None:
+        if self.ddp is not None:
+            dist.barrier(group=self.ddp.process_group)
+
     def _save(self, name: str, epoch: int) -> None:
-        extra = {"epoch": epoch, "early_stop": self.early_stopping.state_dict()}
-        save_checkpoint(str(self.log_dir), name, self.model.state_dict(),
-                        self.optimizer.state_dict(), epoch, extra)
+        if self.is_main:
+            extra = {"epoch": epoch, "early_stop": self.early_stopping.state_dict()}
+            save_checkpoint(str(self.log_dir), name, self.model.state_dict(),
+                            self.optimizer.state_dict(), epoch, extra)
+        self._barrier()  # no rank reads a checkpoint before it is whole
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -116,7 +153,8 @@ class Trainer:
         agg: Dict[str, list] = {}
         for batch in self.train_loader:
             metrics = train_step(self.model, self.optimizer, self._on_device(batch),
-                                 self.generator, t.out_size, t.grad_clip_norm, self.loss_fn)
+                                 self.generator, t.out_size, t.grad_clip_norm, self.loss_fn,
+                                 ddp=self.ddp)
             for k, v in metrics.items():
                 agg.setdefault(k, []).append(v)
         # one wait for the card per epoch
@@ -180,6 +218,20 @@ class Trainer:
         finally:
             self.model.train()
 
+    def _log(self, name: str, epoch: int, metrics: Dict[str, float]) -> None:
+        if self.is_main:
+            with open(self.log_dir / name, "a") as f:
+                f.write(f"{epoch}\t{metrics}\n")
+
+    def _mean_over_ranks(self, values: list) -> list:
+        """`values` averaged over the data-parallel ranks, so that every rank
+        takes the same early-stopping decision."""
+        if self.ddp is None:
+            return values
+        v = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(v, group=self.ddp.process_group)
+        return (v / dist.get_world_size(self.ddp.process_group)).tolist()
+
     # ------------------------------------------------------------------
     def fit(self, n_epochs: Optional[int] = None) -> Dict[str, float]:
         t = self.config.train
@@ -198,22 +250,22 @@ class Trainer:
                 train_metrics.get("diff_loss", float("nan")),
                 time.time() - t0,
             )
-            with open(self.log_dir / "train.log", "a") as f:
-                f.write(f"{epoch}\t{train_metrics}\n")
+            self._log("train.log", epoch, train_metrics)
 
             val_metrics: Dict[str, float] = {}
             if epoch % t.val_every == 0:
                 val_metrics = self.validate(epoch)
-                with open(self.log_dir / "val.log", "a") as f:
-                    f.write(f"{epoch}\t{val_metrics}\n")
+                self._log("val.log", epoch, val_metrics)
 
             if epoch % t.save_every == 0:
-                self.synthesize_samples(epoch)
+                self.synthesize_samples(epoch)  # rank 0's writer only
+                self._barrier()
                 # without a validation set, early stopping and grad_best
                 # follow the training losses
                 ref = val_metrics or train_metrics
-                losses = [ref.get(k, float("inf"))
-                          for k in ("prior_loss", "diff_loss", "dur_loss", "total_loss")]
+                losses = self._mean_over_ranks(
+                    [ref.get(k, float("inf"))
+                     for k in ("prior_loss", "diff_loss", "dur_loss", "total_loss")])
                 _, improved = self.early_stopping.step(losses)
                 self._save(f"grad_{epoch}", epoch)
                 if improved:

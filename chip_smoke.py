@@ -175,6 +175,26 @@ fatal on failure (exit code 1, no result line):
    0.8-1.25), then an epoch of three steps through `Trainer` in bf16 and in
    float32 (finite losses, K6 once a step and no other kernel, parameters
    and Adam float32, step walls and peak memory).
+15. train_dp: data parallelism over two gloo ranks (spawned processes)
+   sharing cuda:0 with CUDA tensors, the kernels built by the parent
+   before: v2 at full width, two steps of a global batch of 16 (8 rows a
+   rank, the preset's fixed buckets, pinned draws, dropout 0) through
+   `train_step(ddp=...)` against the one-process step on the same batches
+   on the card (losses within TOL_DP_LOSS, the first step's gradients
+   within 9b's rule, the parameters within the CPU tests' band, the ranks'
+   bit for bit equal), K6 once a step on each rank and no plain MAS on the
+   card; the step walls and the gloo all-reduce of the gradient's bytes.
+   Then `python -m torch.distributed.run --standalone --nproc_per_node=1
+   -m arttts_tpu_torch.cli.train --mesh` (NCCL, world size 1) trains an
+   epoch on a seeded corpus under `build/chip_smoke_dp/` (removed after)
+   with its checkpoint (`grad_final`), and a second run resumes from it;
+16. sample_sp: v2's flagship geometry (B=1, 80 x 768) sequence-parallel
+   over the same two ranks: the SP score function against the unsharded
+   module path on the card within the CPU test's band, a 4-step Euler
+   `synthesize(mesh=...)` against the unsharded run within 2% (relative
+   L2), the collectives and the wall of an evaluation beside the module
+   path's. Two ranks on one card measure the collectives' cost and
+   correctness, not scaling.
 
 Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
 entry each) and the card line come before the last, which is
@@ -1708,6 +1728,568 @@ def train_bf16_phase(card, dev, counters, plains, K6):
     return k6_bf16
 
 
+DP_RANKS = 2  # phases 15-16: two ranks share cuda:0 over gloo
+DP_BATCH = 16  # the global batch, 8 rows a rank
+DP_TRAINER_BATCH = 8  # phase 15's Trainer: 4 rows a rank
+TOL_DP_LOSS = 1e-5  # every loss part, relative, against the one-process step
+SP_T = 768  # phase 16: the flagship bucket, 384 frames a rank
+SP_REPS = 3
+
+
+def _v2_model(device):
+    """v2 from seed 0 on `device`, the encoder's dropout off (its masks
+    differ between a rank's rows and the whole batch) and small distinct
+    Rezero gains (they start at 0, which silences every attention site)."""
+    import torch
+
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.models.tts import build_model
+
+    cfg = get_preset("v2").model
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, dropout=0.0, prenet_dropout=0.0))
+    model = build_model(cfg, device=device, seed=0)
+    est = model.decoder.estimator
+    with torch.no_grad():
+        for k, site in enumerate([lv[2] for lv in est.downs] + [est.mid_attn]
+                                 + [u[2] for u in est.ups]):
+            site.fn.g.fill_((0.03 + 0.01 * k) * (-1) ** k)
+    return model
+
+
+def _rank_serve(rank, port, jobs, results):
+    """One rank of phases 15-16 (a spawned process): joins the two-rank gloo
+    group on cuda:0 through the port's `init_distributed`, then runs the
+    named jobs of this module until it gets None; a job's exception goes
+    back to the parent as its traceback."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from arttts_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                     world_size=DP_RANKS, rank=rank, device="cuda:0")
+    try:
+        for name, args in iter(jobs.get, None):
+            try:
+                results.put((rank, True, globals()[name](*args)))
+            except Exception:
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank_job(batches, out_size, lr, save_to):
+    """Phase 15 on one rank: two steps of `train_step(ddp=...)` on this
+    rank's rows of each global batch (numpy, pinned draws), K6 counted;
+    the gloo all-reduce of a gradient-sized buffer timed. Rank 0 saves the
+    first step's (clipped, all-reduced) gradients and the final parameters
+    to `save_to`."""
+    import torch
+    import torch.distributed as dist
+
+    from arttts_tpu_torch.ops import mas as K6
+    from arttts_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from arttts_tpu_torch.train.losses import grad_tts_loss
+    from arttts_tpu_torch.train.step import data_parallel, make_optimizer, train_step
+
+    mesh = make_mesh(device_type="cuda")
+    dev = mesh.device
+    model = _v2_model(dev)
+    ddp = data_parallel(model, grad_tts_loss, mesh.groups["data"])
+    opt = make_optimizer(model, lr)
+    K6.maximum_path.launches = K6.maximum_path_plain.cuda_calls = 0
+    metrics, walls, grads = [], [], None
+    for i, b in enumerate(batches):
+        local = shard_batch(mesh, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, local, None, out_size, ddp=ddp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads = [p.grad.detach().cpu() for p in model.parameters()]
+    launches, plain = K6.maximum_path.launches, K6.maximum_path_plain.cuda_calls
+    n_params = sum(p.numel() for p in model.parameters())
+    buf = torch.ones(n_params, device=dev)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) / 3 * 1e3
+    if dist.get_rank() == 0:
+        torch.save({"grads": grads, "params": [p.detach().cpu() for p in model.parameters()]},
+                   save_to)
+    return dict(rows=int(local["x"].shape[0]), metrics=metrics,
+                step_wall_ms=[1e3 * w for w in walls], k6_launches=launches,
+                plain_mas_on_card=plain, n_params=n_params,
+                allreduce_bytes=n_params * 4, allreduce_ms=allreduce_ms,
+                params_digest=_digest(model.parameters()))
+
+
+def _dp_trainer_job(corpus, logs):
+    """Phase 15 on one rank: `Trainer(mesh=...)` on the seeded v2 corpus
+    under `corpus` (the preset's fixed buckets, 4 rows a rank of a global
+    batch of 8, a save every epoch), one epoch with K6 counted, then a second
+    `Trainer` resumed from the first's `grad_final`: its weights and Adam's
+    state against the first's, by digest."""
+    import types
+
+    import torch
+
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.data.datasets import build_dataset
+    from arttts_tpu_torch.ops import mas as K6
+    from arttts_tpu_torch.parallel.mesh import make_mesh
+    from arttts_tpu_torch.train.trainer import Trainer
+
+    exp = get_preset("v2")
+    cfg = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, batch_size=DP_TRAINER_BATCH, save_every=1, val_every=1, log_dir=str(logs)))
+    mesh = make_mesh(device_type="cuda")
+    args = types.SimpleNamespace(data_root=str(corpus), cmudict=None, mel_cache=None,
+                                 artic_dir=None)
+    train_ds, valid_ds = (build_dataset(cfg, args, str(corpus / f), device=mesh.device)
+                          for f in ("train.txt", "valid.txt"))
+
+    def state_digest(trainer):
+        opt = trainer.optimizer.state_dict()["state"]
+        return _digest([*trainer.model.state_dict().values(),
+                        *(v for k in sorted(opt) for v in opt[k].values())])
+
+    trainer = Trainer(cfg, train_ds, valid_dataset=valid_ds, device=mesh.device, mesh=mesh)
+    K6.maximum_path.launches = K6.maximum_path_plain.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(n_epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, plain = K6.maximum_path.launches, K6.maximum_path_plain.cuda_calls
+    resumed = Trainer(cfg, train_ds, valid_dataset=valid_ds, device=mesh.device, mesh=mesh)
+    start = resumed.resume(str(logs / "grad_final"))
+    rows = trainer.train_loader.batcher.rows
+    return dict(rows=[rows.start, rows.stop], steps=len(trainer.train_loader.batcher),
+                valid_batches=len(trainer.valid_loader.batcher), fit_s=fit_s,
+                k6_launches=launches, plain_mas_on_card=plain, ddp=trainer.ddp is not None,
+                digest=state_digest(trainer), resumed_digest=state_digest(resumed),
+                resume_start_epoch=start, checkpoints=sorted(q.name for q in logs.iterdir()))
+
+
+def _local_stats_block(block, x, m, length, comm, eps):
+    """`models/unet2d_sp.py:_block` with the fault phase 16 must catch: the
+    GroupNorm statistics of this rank's chunk alone, not all-reduced."""
+    from arttts_tpu_torch.models import unet2d_sp
+
+    class NoReduce:
+        @staticmethod
+        def sum(t):
+            return t
+
+    conv, norm = block.block
+    h = unet2d_sp._conv3x3(x, conv, comm) * m
+    count = m.sum(dim=(1, 2, 3)) * (h.shape[1] // norm.groups) * h.shape[2]
+    return unet2d_sp.mish(unet2d_sp._group_norm(h, norm, count, NoReduce, eps)) * m
+
+
+def _sp_rank_job(inputs, synth):
+    """Phase 16 on one rank: the SP score function over a 1 x 2 mesh on this
+    rank's chunk of `inputs` (numpy xt, mask, mu, t), timed per evaluation
+    with its collectives counted; then `synthesize(mesh=...)`, 4 Euler
+    steps, the whole decode on every rank."""
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.infer.sampler import synthesize
+    from arttts_tpu_torch.models.unet2d_fast import make_score_fn
+    from arttts_tpu_torch.parallel.mesh import local_slice, make_mesh
+
+    mesh = make_mesh(n_data=1, n_model=DP_RANKS, device_type="cuda")
+    dev = mesh.device
+    model = _v2_model(dev).eval()
+    xt, mask, mu, t = (torch.from_numpy(a).to(dev) for a in inputs)
+    cut = local_slice(mesh, "model", SP_T)
+    fn = make_score_fn(model, SP_T, mesh=mesh)
+    walls = []
+    with torch.inference_mode():
+        for _ in range(SP_REPS + 1):
+            calls0, bytes0 = fn.comm.calls, fn.comm.bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(xt[:, cut], mask[:, cut], mu[:, cut], t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    per_eval = (fn.comm.calls - calls0, fn.comm.bytes - bytes0)
+    # one collective alone: a GroupNorm statistics pair's size, 20 times
+    stats = torch.ones(2, 1, 8, device=dev)
+    fn.comm.sum(stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn.comm.sum(stats)
+    torch.cuda.synchronize()
+    small_ms = (time.perf_counter() - t0) / 20 * 1e3
+    # the same evaluation with each rank's own GroupNorm statistics
+    from arttts_tpu_torch.models import unet2d_sp
+
+    real_block, unet2d_sp._block = unet2d_sp._block, _local_stats_block
+    try:
+        with torch.inference_mode():
+            local = fn(xt[:, cut], mask[:, cut], mu[:, cut], t)
+    finally:
+        unet2d_sp._block = real_block
+    x, xl, dur = synth
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = synthesize(model, torch.Generator(device=dev).manual_seed(7), x, xl, n_timesteps=4,
+                     max_frames=SP_T, temperature=1e6, x_durations=dur, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(chunk=out.cpu().numpy(), chunk_local_stats=local.cpu().numpy(),
+                qualname=fn.__qualname__,
+                collectives_per_eval=per_eval[0], collective_bytes_per_eval=per_eval[1],
+                eval_wall_ms=[1e3 * w for w in walls[1:]], small_allreduce_ms=small_ms,
+                synth_wall_s=time.perf_counter() - t0,
+                dec=np.asarray(res[1].cpu()), y_lengths=np.asarray(res[3].cpu()))
+
+
+class _Ranks:
+    """The two rank processes of phases 15-16, spawned once (each takes
+    seconds to import torch and reach the card)."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        self.jobs = [ctx.Queue() for _ in range(DP_RANKS)]
+        self.results = ctx.Queue()
+        # daemons: a failed phase exits, and the ranks with it
+        self.procs = [ctx.Process(target=_rank_serve, args=(r, port, self.jobs[r], self.results),
+                                  daemon=True) for r in range(DP_RANKS)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, name, *args, timeout=300):
+        import queue
+
+        for q in self.jobs:
+            q.put((name, args))
+        got = {}
+        for _ in range(DP_RANKS):
+            try:
+                rank, ok, value = self.results.get(timeout=timeout)
+            except queue.Empty:
+                fail(f"{name}: a rank gave no result in {timeout} s "
+                     f"(alive: {[p.is_alive() for p in self.procs]})")
+            if not ok:
+                fail(f"{name}: rank {rank} failed:\n{value}")
+            got[rank] = value
+        return [got[r] for r in range(DP_RANKS)]
+
+    def close(self):
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        codes = [p.exitcode for p in self.procs]
+        if codes != [0] * DP_RANKS:
+            fail(f"rank processes exited with {codes}")
+
+
+def write_text_mel_corpus(root, n_train=16, n_valid=8):
+    """A seeded v2 corpus (`text_mel`) under `root`: 22.05 kHz wavs of
+    1.2-2.5 s and `wav|text` training and validation filelists."""
+    import numpy as np
+
+    from arttts_tpu_torch.audio.io import save_wav
+
+    r = np.random.default_rng(31)
+    (root / "wavs").mkdir(parents=True)
+    lines = []
+    for i in range(n_train + n_valid):
+        t = np.arange(int(22050 * float(r.uniform(1.2, 2.5)))) / 22050.0
+        wav = 0.2 * np.sin(2 * np.pi * (110 + 7 * i) * t) + 0.02 * r.standard_normal(t.size)
+        save_wav(root / "wavs" / f"dp{i:03d}.wav", wav.astype(np.float32), 22050)
+        lines.append(f"DUMMY/wavs/dp{i:03d}.wav|{CLI_TEXTS[i % len(CLI_TEXTS)]}")
+    (root / "train.txt").write_text("\n".join(lines[:n_train]))
+    (root / "valid.txt").write_text("\n".join(lines[n_train:]))
+
+
+def train_dp_phase(card, dev, K6):
+    """Phase 15 (`train_dp`): v2 at full width, data-parallel over two gloo
+    ranks sharing cuda:0 with CUDA tensors: two steps of the global batch of
+    16 (8 rows a rank, the preset's fixed buckets, pinned draws, dropout
+    0) against the one-process step on the same batches on the card
+    (losses within TOL_DP_LOSS relative; the first step's gradients within
+    phase 9b's rule; the parameters within the CPU tests' band; the ranks'
+    bit for bit equal), K6 once a step on each rank and no plain MAS on the
+    card; the gloo all-reduce of the gradient's bytes timed. Then the same
+    ranks run `Trainer(mesh=...)` for an epoch on a seeded wav corpus (its
+    rows, DDP, K6 once a step and a validation batch on each rank, rank 0's
+    checkpoints behind barriers) and resume it, both ranks to the saved
+    state. Last, `cli.train --mesh` under `torch.distributed.run
+    --standalone --nproc_per_node=1` (NCCL, world size 1) resumes that
+    checkpoint, trains epoch 2 and writes its own. Two ranks on one card
+    measure the collectives' cost and correctness, not scaling. Returns (the
+    K6 launches of the steps and of the Trainer, each summed over the ranks,
+    the rank processes for phase 16)."""
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.data.batching import DataLoader
+    from arttts_tpu_torch.train.step import make_optimizer, train_step
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    exp = get_preset("v2")
+    out_size, lr, F_ = exp.train.out_size, exp.train.learning_rate, exp.model.n_feats
+    ds = SyntheticPairs(2 * DP_BATCH, 50, F_, n_vocab=exp.model.encoder.n_vocab)
+    loader = DataLoader(ds, DP_BATCH, seed=0, min_frames=out_size,
+                        text_bucket=exp.data.max_text_len, frame_bucket=exp.data.max_frame_len)
+    r = np.random.default_rng(51)
+    batches = []
+    for b in loader:
+        y_len = b["y_lengths"]
+        batches.append(dict(b, pinned_t=r.uniform(0.05, 0.95, DP_BATCH).astype(np.float32),
+                            pinned_z=r.standard_normal((DP_BATCH, out_size, F_)).astype(
+                                np.float32),
+                            pinned_offsets=(r.random(DP_BATCH) * np.maximum(y_len - out_size, 1)
+                                            ).astype(np.int32)))
+    # the one-process step on the whole batches (before the ranks share the card)
+    model = _v2_model(dev)
+    opt = make_optimizer(model, lr)
+    ref_metrics, ref_walls, ref_grads = [], [], None
+    for i, b in enumerate(batches):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, tb, None, out_size)
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+        ref_metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            ref_grads = [p.grad.detach().cpu() for p in model.parameters()]
+    ref_params = [p.detach().cpu() for p in model.parameters()]
+    del model, opt
+    torch.cuda.empty_cache()
+
+    t_spawn = time.perf_counter()
+    ranks = _Ranks()
+    saved = root / "rank0.pt"
+    r0, r1 = ranks.run("_dp_rank_job", batches, out_size, lr, str(saved))
+    dp = torch.load(saved, weights_only=True)
+    loss_rel = max(abs(a[k] - b[k]) / abs(b[k]) for got in (r0, r1)
+                   for a, b in zip(got["metrics"], ref_metrics)
+                   for k in ("total_loss", "dur_loss", "prior_loss", "diff_loss"))
+    grad_worst = max(float((g - gr).abs().max()) / (1e-3 * float(gr.abs().max()) + 1e-7)
+                     for g, gr in zip(dp["grads"], ref_grads))
+    # both start from the same weights: the parameters' distance is the changes'
+    change = torch.cat([(p - q).abs().reshape(-1) for p, q in zip(dp["params"], ref_params)])
+    n_over, param_worst = int((change > 2e-6).sum()), float(change.max())
+    result = dict(
+        card=card, preset="v2", ranks=DP_RANKS, backend="gloo, CUDA tensors, one card",
+        global_batch=DP_BATCH, rows_a_rank=r0["rows"], buckets=[exp.data.max_text_len,
+                                                               exp.data.max_frame_len],
+        steps=len(batches), metrics_ranks=r0["metrics"], metrics_one_process=ref_metrics,
+        loss_rel_worst=loss_rel, grad_tolerance_share_worst=grad_worst,
+        params_over_2e6=n_over, params=change.numel(), params_worst=param_worst,
+        ranks_bit_equal=r0["params_digest"] == r1["params_digest"],
+        k6_launches=[r0["k6_launches"], r1["k6_launches"]],
+        plain_mas_on_card=[r0["plain_mas_on_card"], r1["plain_mas_on_card"]],
+        step_wall_ms={"rank0": r0["step_wall_ms"], "rank1": r1["step_wall_ms"],
+                      "one_process_B16": [1e3 * w for w in ref_walls]},
+        allreduce=dict(parameters=r0["n_params"], bytes_a_step=r0["allreduce_bytes"],
+                       ms=[r0["allreduce_ms"], r1["allreduce_ms"]],
+                       share_of_rank_step_after_first=(r0["allreduce_ms"]
+                                                       / r0["step_wall_ms"][1])),
+        ranks_spawn_to_result_s=time.perf_counter() - t_spawn,
+        tol=(f"losses rel {TOL_DP_LOSS} against the one-process step; first-step gradients "
+             "1e-3 * max|g| + 1e-7 per tensor (phase 9b); parameter changes over 2e-6 at most "
+             "1e-4 of the elements and none over 4e-4 (two Adam steps at lr 1e-4)"),
+        note="two ranks on one card: the collectives' cost and correctness, not scaling")
+    failures = []
+    if loss_rel > TOL_DP_LOSS or grad_worst > 1.0:
+        failures.append(f"losses {loss_rel} or gradients {grad_worst} off the one-process step")
+    if n_over > 1e-4 * change.numel() or param_worst > 4 * lr or not result["ranks_bit_equal"]:
+        failures.append(f"parameters: {n_over} over 2e-6, worst {param_worst}, ranks equal "
+                        f"{result['ranks_bit_equal']}")
+    if result["k6_launches"] != [len(batches)] * DP_RANKS or any(result["plain_mas_on_card"]):
+        failures.append(f"K6 {result['k6_launches']}, plain MAS {result['plain_mas_on_card']}")
+
+    # Trainer(mesh=...) on the ranks: an epoch of a seeded corpus, a checkpoint, a resume
+    corpus, logs = root / "corpus", root / "logs"
+    write_text_mel_corpus(corpus)
+    t0 = time.perf_counter()
+    tr = ranks.run("_dp_trainer_job", corpus, logs)
+    result["trainer"] = dict(
+        global_batch=DP_TRAINER_BATCH, rows=[q["rows"] for q in tr],
+        steps=tr[0]["steps"], valid_batches=tr[0]["valid_batches"],
+        fit_s=[q["fit_s"] for q in tr], k6_launches=[q["k6_launches"] for q in tr],
+        plain_mas_on_card=[q["plain_mas_on_card"] for q in tr],
+        checkpoints=tr[0]["checkpoints"], resume_start_epoch=[q["resume_start_epoch"] for q in tr],
+        ranks_bit_equal=tr[0]["digest"] == tr[1]["digest"],
+        resumed_equal=[q["resumed_digest"] == q["digest"] for q in tr],
+        wall_s=time.perf_counter() - t0)
+    k6_per_rank = tr[0]["steps"] + tr[0]["valid_batches"]  # a train step, a validation batch
+    if not (all(q["ddp"] for q in tr) and tr[0]["rows"] == [0, DP_TRAINER_BATCH // 2]
+            and tr[1]["rows"] == [DP_TRAINER_BATCH // 2, DP_TRAINER_BATCH]
+            and result["trainer"]["k6_launches"] == [k6_per_rank] * DP_RANKS
+            and not any(result["trainer"]["plain_mas_on_card"])
+            and {"grad_1", "grad_best", "grad_final"} <= set(tr[0]["checkpoints"])
+            and result["trainer"]["ranks_bit_equal"] and all(result["trainer"]["resumed_equal"])
+            and result["trainer"]["resume_start_epoch"] == [2, 2]):
+        failures.append(f"Trainer over two ranks: {result['trainer']}")
+
+    # cli.train --mesh under torchrun (NCCL, world size 1): resumes the ranks'
+    # checkpoint, trains epoch 2 and writes its own
+    nccl_logs = root / "logs_nccl"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "arttts_tpu_torch.cli.train", "--mesh", "--preset", "v2", "--data-root",
+           str(corpus), "--train-filelist", str(corpus / "train.txt"), "--valid-filelist",
+           str(corpus / "valid.txt"), "--log-dir", str(nccl_logs), "--batch-size", "8",
+           "--epochs", "2", "--resume", str(logs / "grad_final")]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    out = p.stdout + p.stderr
+    (ROOT / "build" / "chip_smoke_torchrun.log").write_text(out)  # the launcher's whole output
+    # the preset saves `grad_{epoch}` every 200 epochs: the run's checkpoint is grad_final
+    files = sorted(q.name for q in nccl_logs.iterdir()) if nccl_logs.exists() else []
+    meta = (json.loads((nccl_logs / "grad_final" / "meta.json").read_text())
+            if "grad_final" in files else {})
+    train_log = (nccl_logs / "train.log").read_text().splitlines() if nccl_logs.exists() else []
+    result["torchrun"] = dict(
+        rc=p.returncode, wall_s=time.perf_counter() - t0, nccl="over nccl" in out,
+        resumed="Resumed from" in out and "at epoch 2" in out, checkpoints=files,
+        saved_epoch=meta.get("extra", {}).get("epoch"),
+        epoch_s=[float(line.rsplit(" ", 1)[1].rstrip("s")) for line in out.splitlines()
+                 if "epoch " in line and ": loss=" in line])
+    if p.returncode != 0:
+        failures.append(f"torchrun: exit {p.returncode}:\n{out[-3000:]}")
+    elif not (result["torchrun"]["nccl"] and result["torchrun"]["resumed"]
+              and result["torchrun"]["saved_epoch"] == 2 and len(train_log) == 1):
+        failures.append(f"torchrun: {result['torchrun']}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit({"train_dp": result})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        ranks.close()
+        fail("train_dp: " + "; ".join(failures))
+    return (r0["k6_launches"] + r1["k6_launches"], sum(result["trainer"]["k6_launches"]),
+            ranks)
+
+
+def sample_sp_phase(card, dev, ranks):
+    """Phase 16 (`sample_sp`): v2's flagship geometry (80 x 768, dim 64,
+    mults 1/2/4) sequence-parallel over phase 15's two gloo ranks on cuda:0:
+    the SP score function against the unsharded module path on the card,
+    within the CPU test's band (`tests/test_torch_sp.py`: 6e-2, and 2e-2 of
+    max |ref| at the 99th percentile), on inputs whose two chunks differ in
+    scale, and out of the band when each rank takes its own chunk's
+    GroupNorm statistics (`_local_stats_block`); and a 4-step Euler
+    `synthesize(mesh=...)` against the unsharded run (the kernels), within
+    2% in relative L2; the collectives and the wall of an evaluation beside
+    the module path's. Two ranks on one card measure the collectives' cost,
+    not scaling. Stops the rank processes."""
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.infer.sampler import synthesize
+
+    t_phase = time.perf_counter()
+    r = np.random.default_rng(61)
+    F_ = 80
+    # the second chunk's xt and mu 3x the first's: the chunks' GroupNorm
+    # statistics differ, so a rank using its own would leave the band
+    scale = np.where(np.arange(SP_T) < SP_T // DP_RANKS, 1.0, 3.0).astype(np.float32)
+    inputs = (r.standard_normal((1, SP_T, F_)).astype(np.float32) * scale[:, None],
+              np.ones((1, SP_T, 1), np.float32),
+              r.standard_normal((1, SP_T, F_)).astype(np.float32) * scale[:, None],
+              np.array([0.5], np.float32))
+    x = r.integers(1, 100, (1, 96))
+    synth = (x, np.array([96], np.int32), np.full((1, 96), SP_T / 96, np.float32))
+    r0, r1 = ranks.run("_sp_rank_job", inputs, synth)
+    ranks.close()
+    model = _v2_model(dev).eval()
+    xt, mask, mu, t = (torch.from_numpy(a).to(dev) for a in inputs)
+    walls = []
+    with torch.inference_mode():
+        for _ in range(SP_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = model.estimate_noise(xt, mask, mu, t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    ref = ref.cpu().numpy()
+    q99_limit = 2e-2 * max(1.0, float(np.abs(ref).max()))
+
+    def in_band(chunks):
+        err = np.abs(np.concatenate(chunks, axis=1) - ref)
+        q99 = float(np.quantile(err, 0.99))
+        return err, q99, bool((err <= 6e-2 + 6e-2 * np.abs(ref)).all()) and q99 < q99_limit
+
+    err, q99, band_ok = in_band([r0["chunk"], r1["chunk"]])
+    err_local, q99_local, local_ok = in_band([r0["chunk_local_stats"], r1["chunk_local_stats"]])
+    _, dec, _, y_len = synthesize(model, torch.Generator(device=dev).manual_seed(7), synth[0],
+                                  synth[1], n_timesteps=4, max_frames=SP_T, temperature=1e6,
+                                  x_durations=synth[2], device=dev)
+    dec = dec.cpu().numpy()
+    rel = float(np.linalg.norm(r0["dec"] - dec) / np.linalg.norm(dec))
+    module_ms = [1e3 * w for w in walls[1:]]
+    result = dict(
+        card=card, preset="v2", geometry=f"{F_} x {SP_T}, dim 64, mults 1/2/4",
+        ranks=DP_RANKS, chunk_frames=SP_T // DP_RANKS, path=r0["qualname"],
+        inputs="B=1, i.i.d. normal xt and mu, the second chunk's scaled by 3, no padding",
+        score_max_abs_err=float(err.max()), score_q99_err=q99, score_band_ok=band_ok,
+        local_stats=dict(max_abs_err=float(err_local.max()), q99_err=q99_local,
+                         band_ok=local_ok),
+        collectives_per_eval=r0["collectives_per_eval"],
+        collective_bytes_per_eval=r0["collective_bytes_per_eval"],
+        sp_eval_wall_ms={"rank0": r0["eval_wall_ms"], "rank1": r1["eval_wall_ms"]},
+        # the collectives' share of an evaluation, each taken as one alone
+        small_allreduce_ms=[r0["small_allreduce_ms"], r1["small_allreduce_ms"]],
+        collectives_share_estimate=(r0["collectives_per_eval"] * r0["small_allreduce_ms"]
+                                    / sorted(r0["eval_wall_ms"])[SP_REPS // 2]),
+        module_eval_wall_ms=module_ms,
+        synthesize=dict(steps=4, frames=[int(v) for v in r0["y_lengths"]], rel_l2=rel,
+                        max_abs_err=float(np.abs(r0["dec"] - dec).max()),
+                        ranks_equal=bool(np.array_equal(r0["dec"], r1["dec"])),
+                        sp_wall_s=[r0["synth_wall_s"], r1["synth_wall_s"]]),
+        tol="score: |sp - module| <= 6e-2 + 6e-2 |module|, q99 < 2e-2 max(1, max|module|), "
+            "and the local-statistics run outside it; synthesize: relative L2 < 2e-2",
+        note="two ranks on one card: the collectives' cost and correctness, not scaling",
+        phase_s=time.perf_counter() - t_phase)
+    emit({"sample_sp": result})
+    if not (band_ok and not local_ok and rel < 2e-2
+            and result["synthesize"]["ranks_equal"] and np.isfinite(r0["dec"]).all()
+            and r0["qualname"] == "make_sp_score_fn.<locals>.score"
+            and result["synthesize"]["frames"] == [SP_T] and int(y_len[0]) == SP_T):
+        fail(f"sample_sp: {result}")
+
+
 def main():
     if not (ROOT / "arttts_tpu_torch" / "csrc").is_dir():
         fail("arttts_tpu_torch/ is not beside chip_smoke.py: run from a checkout")
@@ -3154,6 +3736,12 @@ def main():
     # ---- 14. train_bf16: bf16 decoder training against float32 ---------------
     bf16_train_k6 = train_bf16_phase(card, dev, counters, plains, K6)
 
+    # ---- 15. train_dp: two gloo ranks on the card, and cli.train --mesh on NCCL --
+    dp_k6, dp_trainer_k6, ranks = train_dp_phase(card, dev, K6)
+
+    # ---- 16. sample_sp: the SP score function and synthesize(mesh=...) ---------
+    sample_sp_phase(card, dev, ranks)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -3270,10 +3858,12 @@ def main():
         "replaces": "arttts_tpu/ops/mas_pallas.py:41",
         "tpu_wrappers": ["mas_pallas :180 (_mas_kernel :41, pallas_call :109)"],
         "launches": (train_launches["maximum_path"] + train_presets_launches["maximum_path"]
-                     + bf16_train_k6),
+                     + bf16_train_k6 + dp_k6 + dp_trainer_k6),
         "launches_by_path": {"training (v2)": train_launches["maximum_path"],
                              "train_presets": train_presets_launches["maximum_path"],
-                             "train_bf16": bf16_train_k6},
+                             "train_bf16": bf16_train_k6,
+                             "training (DP, 2 ranks)": dp_k6,
+                             "Trainer (DP, 2 ranks)": dp_trainer_k6},
         "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
         "exact": all(c["exact_vs_plain"] and c["cells_off_oracle"] == 0 for c in mas_cases),
         "tolerance": "bit for bit against the plain version and the NumPy oracle",

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "voxcommunis.sampler", "eval.metrics", "models.lstm", "models.wav2vec2",
                 "models.utmos", "models.wavlm", "models.sparc_encoder", "audio.pitch",
                 "eval.utmos_scorer", "eval.quanti", "cli.score", "cli.pipeline",
-                "cli.encode_audio", "cli.demo", "utils.reference_weights"):
+                "cli.encode_audio", "cli.demo", "utils.reference_weights",
+                "parallel.distributed", "parallel.mesh", "models.unet2d_sp"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []

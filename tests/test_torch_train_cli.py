@@ -215,7 +215,8 @@ def test_cli_train_trains_each_preset(preset, preset_registry, tmp_path):
 def test_cli_train_resumes(preset, preset_registry, tmp_path):
     """An epoch through `cli.train`, then `--resume` from `grad_1` for a
     second: the resumed run starts at epoch 2 with Adam's step count
-    restored and the saved weights; `--mesh` raises (ROADMAP A13)."""
+    restored and the saved weights. `--mesh` without a launcher is a world
+    of one: its epoch gives the first run's weights bit for bit."""
     cfg = preset_registry(preset)
     common = ["--preset", cfg.name, "--data-root", str(tmp_path), *_cli_args(preset, tmp_path),
               "--log-dir", str(tmp_path / "logs"), "--device", "cpu"]
@@ -236,8 +237,9 @@ def test_cli_train_resumes(preset, preset_registry, tmp_path):
                                            str(tmp_path / "logs" / "grad_1")])
     finally:
         Trainer.train_epoch = real_epoch
-    with pytest.raises(NotImplementedError, match="A13"):
-        ptrain_cli.main(common + ["--mesh"])
+    meshed = ptrain_cli.main(common + ["--epochs", "1", "--mesh", "--log-dir",
+                                       str(tmp_path / "mesh_logs")])
+    assert all(torch.equal(saved[k], v) for k, v in meshed.model.state_dict().items())
     assert second.start_epoch == 2 and [e for e, _, _ in resumed] == [2]
     assert resumed[0][2] == {float(n)}
     assert all(torch.equal(saved[k], v) for k, v in resumed[0][1].items())
