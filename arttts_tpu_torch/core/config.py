@@ -161,7 +161,16 @@ def _mel_model(n_vocab: int) -> ModelConfig:
     )
 
 
-# msml1h's exclusions (ref configs/params_msml1h.py:87-160)
+# msml1h's 63-language training list and exclusions
+# (ref configs/params_msml1h.py:87-160)
+MSML1H_LANG_CODES: Tuple[str, ...] = (
+    "ka", "ja", "ba", "ro", "hi", "uz", "tt", "el", "sr", "mt", "yo", "be",
+    "uk", "hy-AM", "sk", "ckb", "ur", "tr", "vi", "sq", "bg", "ta", "sv-SE",
+    "eu", "id", "sw", "tk", "kmr", "dv", "ha", "zh-HK", "bn", "mn", "zh-CN",
+    "yue", "lij", "fr", "hsb", "cv", "ko", "nl", "ug", "mr", "ab", "it",
+    "lt", "sl", "kk", "pa-IN", "ru", "cs", "gn", "ml", "nan-tw", "th", "pt",
+    "ky", "pl", "ca", "myv", "hu", "rw", "am",
+)
 MSML1H_INSUFFICIENT_LANGS: Tuple[str, ...] = ("kk", "am", "ur", "sq")
 MSML1H_ZEROSHOT_LANGS: Tuple[str, ...] = ("eu", "ka", "ab", "gn", "sw", "ha", "ko", "myv")
 MSML1H_EXCLUDE_LANGS: Tuple[str, ...] = MSML1H_INSUFFICIENT_LANGS + MSML1H_ZEROSHOT_LANGS

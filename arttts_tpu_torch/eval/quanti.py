@@ -34,7 +34,8 @@ ENCODE_BUCKETS = tuple(32000 * i for i in range(1, 16))  # 2 s .. 30 s at 16 kHz
 log = logging.getLogger(__name__)
 
 
-def _append_rows(out_csv: str, header, rows) -> None:
+def append_rows(out_csv: str, header, rows) -> None:
+    """Append CSV `rows` to `out_csv`, writing `header` when the file is new."""
     new_file = not Path(out_csv).exists()
     with open(out_csv, "a", newline="") as f:
         w = csv.writer(f)
@@ -66,7 +67,7 @@ def quanti_art(pred_dir: str, ref_dir: str, out_csv: Optional[str] = None,
         }
     if out_csv and results:
         keys = ["ema_pcc", "pitch_pcc", "loudness_pcc", "dtw"]
-        _append_rows(out_csv, ["sample_id"] + keys,
+        append_rows(out_csv, ["sample_id"] + keys,
                      [[sid] + [results[sid][k] for k in keys] for sid in sorted(results)])
     return results
 
@@ -131,7 +132,7 @@ def quanti_mel(pred_dir: str, ref_mel_dir: str,
         dtw, _, _ = normalized_dtw_score(dec, ref)
         results[pred_fp.stem] = {"mel_l2": mel_l2(dec, ref), "dtw": dtw}
     if out_csv and results:
-        _append_rows(out_csv, ["sample_id", "mel_l2", "dtw"],
+        append_rows(out_csv, ["sample_id", "mel_l2", "dtw"],
                      [[sid, results[sid]["mel_l2"], results[sid]["dtw"]]
                       for sid in sorted(results)])
     return results

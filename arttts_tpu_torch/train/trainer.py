@@ -185,12 +185,20 @@ class Trainer:
         `valid_dataset.sample_test_batch` makes (as the JAX trainer), each
         with its speaker input and, for GradTTArtic, its aligned durations
         rounded up; log the generated features and the alignment as images
-        scaled to [0, 1] (the JAX trainer's matplotlib plots are ROADMAP
-        A11) and `validation/dtw_{i}`, the DTW score against the target."""
+        and `validation/dtw_{i}`, the DTW score against the target. The
+        images are `utils/plotting.py`'s HWC plots, as the JAX trainer logs
+        them, where matplotlib imports, and the arrays scaled to [0, 1]
+        where it does not."""
         if self.valid_dataset is None or self.tb is None:
             return
         from arttts_tpu_torch.infer.sampler import frame_bucket, synthesize
+        from arttts_tpu_torch.utils.plotting import plot_alignment, plot_tensor
 
+        try:
+            import matplotlib  # noqa: F401
+            plots = {"generated_dec": plot_tensor, "alignment": plot_alignment}
+        except ImportError:
+            plots = None
         items = self.valid_dataset.sample_test_batch(
             min(self.config.train.test_size, len(self.valid_dataset)))
         aligned = self.config.model.name == "grad_ttartic"
@@ -210,9 +218,13 @@ class Trainer:
                 L = int(y_len[0])
                 dec = dec[0, :L].float().cpu()
                 for name, img in (("generated_dec", dec.T), ("alignment", attn[0, :, :L])):
-                    img = img.float().cpu()
-                    img = (img - img.min()) / (img.max() - img.min() + 1e-8)
-                    self.tb.add_image(f"image_{i}/{name}", img[None].numpy(), epoch)
+                    img = img.float().cpu().numpy()
+                    if plots:
+                        self.tb.add_image(f"image_{i}/{name}", plots[name](img), epoch,
+                                          dataformats="HWC")
+                    else:
+                        img = (img - img.min()) / (img.max() - img.min() + 1e-8)
+                        self.tb.add_image(f"image_{i}/{name}", img[None], epoch)
                 score, _, _ = normalized_dtw_score(dec.numpy(), np.asarray(item["y"]))
                 self.tb.add_scalar(f"validation/dtw_{i}", score, epoch)
         finally:

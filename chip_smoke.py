@@ -78,7 +78,11 @@ fatal on failure (exit code 1, no result line):
 7. one more bench-shape request under `torch.profiler`: kernel time by
    name and by the port's kernel it belongs to, K1's time by part (3x3
    conv, 1x1 products, GroupNorm statistics and application, attention
-   core) with launches per evaluation, and the card's idle share;
+   core) with launches per evaluation, and the card's idle share; the
+   profile is taken through `utils/profiling.trace`, and its Chrome trace
+   read back by `utils/trace_analysis` must agree with those sums within
+   1%: `device_busy_seconds` with the device kernel ms and
+   `grouped_report` (the same family substrings) with the ms by family;
 7b. the bench-shape request and a B=4 decode at bucket 384 (10 Euler
    steps) under the profiler, float32 then bf16: kernel time by family,
    device ms an evaluation, idle share;
@@ -194,7 +198,22 @@ fatal on failure (exit code 1, no result line):
    `synthesize(mesh=...)` against the unsharded run within 2% (relative
    L2), the collectives and the wall of an evaluation beside the module
    path's. Two ranks on one card measure the collectives' cost and
-   correctness, not scaling.
+   correctness, not scaling;
+17. ema_corpus: seeded sentences of 1.5-4 s of the four EMA corpora in
+   their own formats under `build/chip_smoke_ema/` (removed after): MNGU0
+   labels, MOCHA labels and EST EMA at 500 Hz, MSPKA octal-escaped labels
+   and ASCII EMA at 400 Hz, PB2007 labels in 100 Hz frames and float32 EMA
+   (one sentence 10% NaN frames). `cli.generate_phnm3.main` over each
+   corpus (every file equal to its reader's phnm3); `SpeakerMetadata` at
+   each layout's EMA rate, `validate_ema` (the NaN sentence invalid, the
+   rest valid), `set_splits`, `agg_Xy_split`; v1 at full width from a
+   seeded checkpoint through `cli.synthesize.main` (Euler@50) over every
+   sentence, K1-K3 launched 13 / 2 / 2 an evaluation x 50 x sentences and
+   no plain version on the card; `quanti_art_corpus` of the artifacts
+   against the corpus EMA at 50 Hz (one finite CSV row a valid sentence);
+   a control of the corpus channels plus 1% noise (PCC above 0.95 for each
+   corpus with EMA); one sentence card against CPU (phase 10's v1 check);
+   walls by stage.
 
 Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
 entry each) and the card line come before the last, which is
@@ -680,7 +699,7 @@ class Recorder:
     def add_scalar(self, tag, value, step):
         self.scalars[tag] = float(value)
 
-    def add_image(self, tag, img, step):
+    def add_image(self, tag, img, step, dataformats="CHW"):
         self.images[tag] = list(img.shape)
 
     def close(self):
@@ -2290,6 +2309,292 @@ def sample_sp_phase(card, dev, ranks):
         fail(f"sample_sp: {result}")
 
 
+# ---- phase 17 (`ema_corpus`) -------------------------------------------------
+EMA_CORPORA = ("mngu0", "mocha", "mspka", "pb2007")
+EMA_SENTENCES = 3  # a corpus
+# each corpus's own phone symbols (MOCHA's labels are IPA already) and silence
+EMA_PHONES = {
+    "mngu0": ["p", "aI", "t", "@U", "D", "E", "n", "tS", "I@", "lw", "s", "i", "k", "m"],
+    "mocha": ["ð", "ə", "k", "æ", "t", "ɝ", "ɚ", "s", "ɪ", "n", "aɪ", "ʃ", "m", "u"],
+    "mspka": ["tS", "a", "nf", "E1", "r", "dZ", "o", "ss", "LL", "ttS", "i", "gg", "m", "e"],
+    "pb2007": ["a", "s^", "e~", "b", "o^", "z^", "x", "r", "q", "a~", "j", "w", "m", "i"],
+}
+EMA_SILENCE = {"mngu0": "#", "mocha": "sil", "mspka": "sil", "pb2007": "__"}
+EMA_NAN_SENTENCE = ("pb2007", 1)  # 10% of its frames NaN: invalid at the 5% threshold
+TOL_EMA_CONTROL_PCC = 0.95
+
+
+def write_ema_corpora(root):
+    """A few seeded sentences of 1.5-4 s of each EMA corpus under
+    `root/{corpus}`, in the corpus's own format: labels (`labels/`: MNGU0
+    `.lab`, MOCHA `.phnm`, MSPKA octal-escaped `.lab`, PB2007 `.phone` in
+    100 Hz frames) and EMA (`ema/`: MOCHA EST `.ema` at 500 Hz, MSPKA ASCII
+    21 x T at 400 Hz, PB2007 float32 `.bin` at 100 Hz; MNGU0 none). Each
+    sentence's 12 SPARC-ordered channels are smooth sines (0.5-3 Hz), laid
+    into the raw columns the reader selects. Returns {corpus: {stem: (T50,
+    12) the same channels sampled at 50 Hz}}."""
+    import numpy as np
+
+    from arttts_tpu_torch.corpora import get_corpus, tables
+    from arttts_tpu_torch.corpora.configs import CORPUS_LAYOUTS
+
+    r = np.random.default_rng(17)
+    out = {}
+    for corpus in EMA_CORPORA:
+        d = root / corpus
+        (d / "labels").mkdir(parents=True)
+        (d / "ema").mkdir()
+        rate = CORPUS_LAYOUTS[corpus].ema_sr
+        out[corpus] = {}
+        for i in range(EMA_SENTENCES):
+            stem = f"{corpus}_{i:03d}"
+            dur = float(r.uniform(1.5, 4.0))
+            k = max(6, int(dur / 0.12))
+            b = np.concatenate([[0.0], np.sort(r.uniform(0.05, dur - 0.05, k - 1)), [dur]])
+            phones = [EMA_SILENCE[corpus], *r.choice(EMA_PHONES[corpus], k - 2),
+                      EMA_SILENCE[corpus]]
+            label = d / "labels" / f"{stem}{get_corpus(corpus).label_ext}"
+            if corpus == "mngu0":
+                label.write_text("separator ;\nnfields 1\n#\n" + "".join(
+                    f"{e:.3f} 26 {p}\n" for p, e in zip(phones, b[1:])))
+            elif corpus == "mocha":
+                label.write_text("".join(f"{s:.4f} {e:.4f} {p}\n"
+                                         for p, s, e in zip(phones, b[:-1], b[1:])))
+            elif corpus == "mspka":  # octal-escaped UTF-8 words on some lines
+                words = ["perch\\303\\251", "citt\\303\\240", "casa"]
+                label.write_bytes("".join(
+                    f"{s:.5f} {e:.5f} {p}" + (f" {words[j % 3]}" if j % 3 == 1 else "") + "\n"
+                    for j, (p, s, e) in enumerate(zip(phones, b[:-1], b[1:]))).encode("latin1"))
+            else:
+                f = np.rint(b * 100).astype(int)
+                label.write_text("".join(f"{s} {e} {p}\n" for p, s, e in zip(phones, f[:-1], f[1:])))
+            freqs, phases = r.uniform(0.5, 3.0, 12), r.uniform(0, 2 * np.pi, 12)
+
+            def tracks(hz, n):
+                return np.sin(2 * np.pi * freqs * (np.arange(n)[:, None] / hz) + phases)
+
+            out[corpus][stem] = tracks(50, int(dur * 50)).astype(np.float32)
+            if corpus == "mngu0":
+                continue
+            T = int(dur * rate)
+            sparc = tracks(rate, T).astype(np.float32)
+            if (corpus, i) == EMA_NAN_SENTENCE:
+                sparc[r.choice(T, T // 10, replace=False), 5] = np.nan
+            if corpus == "pb2007":
+                raw = np.zeros((T, 12), np.float32)
+                raw[:, tables.PB2007_IDX_TO_KEEP] = sparc
+                raw.tofile(d / "ema" / f"{stem}.bin")
+            elif corpus == "mocha":
+                ema = r.standard_normal((T, 20)).astype(np.float32)
+                ema[:, tables.MOCHA_IDX_TO_KEEP] = sparc
+                frames = np.concatenate([(np.arange(T) / rate)[:, None], np.ones((T, 1)), ema],
+                                        axis=1).astype(np.float32)
+                with open(d / "ema" / f"{stem}.ema", "wb") as fo:
+                    fo.write(f"EST_File Track\nDataType binary\nByteOrder 01\nNumFrames {T}\n"
+                             "NumChannels 20\nEST_Header_End\n".encode("ascii"))
+                    frames.tofile(fo)
+            else:
+                raw = r.standard_normal((21, T)).astype(np.float32)
+                raw[tables.MSPKA_EMA_IDX_TO_KEEP] = sparc.T
+                (d / "ema" / f"{stem}.ema").write_text(
+                    "\n".join(" ".join(f"{v:.6f}" for v in row) for row in raw) + "\n")
+    return out
+
+
+def ema_corpus_phase(card, dev, counters, plains):
+    """Phase 17 (`ema_corpus`): the EMA corpora and the corpus evaluation
+    they feed, on seeded files in each corpus's own format
+    (`write_ema_corpora`, under `build/chip_smoke_ema/`, removed after):
+    `cli.generate_phnm3.main` over each corpus (every file written and
+    equal to the reader's phnm3); for each corpus with EMA,
+    `SpeakerMetadata(ema_rate=<the layout's ema_sr>).scan`, `validate_ema`
+    (the NaN sentence invalid, the rest valid), `set_splits` and
+    `agg_Xy_split`; v1 at full width from a seeded checkpoint through
+    `cli.synthesize.main` (Euler@50) over a phnm3 filelist of every
+    sentence, laid out as `write_cli_corpus` lays out v1's, the launch
+    counters set to 0 just before and read just after (K1-K3 13 / 2 / 2 an
+    evaluation x 50 x sentences, no plain version and no module path on the
+    card); `quanti_art_corpus` of those artifacts against the corpus EMA at
+    50 Hz (one finite CSV row a valid sentence, none for the invalid one);
+    a control whose predictions are the corpus channels at 50 Hz in the
+    artifact's decoder rows plus 1% noise (mean PCC above 0.95 for every
+    corpus with EMA: the readers, channel selections and resampling end to
+    end); one sentence's 4-step v1 artifact on the card against the CPU
+    (phase 10's technique and TOL_WAV); walls by stage. Returns the K1-K5
+    launches of the synthesis."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from arttts_tpu_torch.cli import generate_phnm3 as cli_phnm3
+    from arttts_tpu_torch.cli import synthesize as cli_synthesize
+    from arttts_tpu_torch.core.checkpoint import save_checkpoint
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.corpora import get_corpus
+    from arttts_tpu_torch.corpora.configs import CORPUS_LAYOUTS
+    from arttts_tpu_torch.corpora.ema_metadata import SpeakerMetadata
+    from arttts_tpu_torch.eval.quanti_corpus import quanti_art_corpus
+    from arttts_tpu_torch.models.tts import build_model
+    from arttts_tpu_torch.models.unet2d import GradLogPEstimator2d
+
+    root = ROOT / "build" / "chip_smoke_ema"
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    failures, walls = [], {}
+    analytic = write_ema_corpora(root)
+    stems = {c: sorted(analytic[c]) for c in EMA_CORPORA}
+    with_ema = [c for c in EMA_CORPORA if get_corpus(c).get_ema is not None]
+    walls["write_s"] = time.perf_counter() - t_phase
+
+    # 1. phnm3 through the CLI, every file equal to its reader's output
+    t0 = time.perf_counter()
+    phnm3_dir = root / "phnm" / "phnm3"
+    written = {c: cli_phnm3.main(["--corpus", c, "--phnm-dir", str(root / c / "labels"),
+                                  "--save-dir", str(phnm3_dir)]) for c in EMA_CORPORA}
+    walls["phnm3_s"] = time.perf_counter() - t0
+    phnm3_ok = {}
+    for c in EMA_CORPORA:
+        ok = written[c] == [str(phnm3_dir / f"{s}_phnm3.npy") for s in stems[c]]
+        for s in stems[c]:
+            a = np.load(phnm3_dir / f"{s}_phnm3.npy")
+            b = get_corpus(c).get_phnm3(root / c / "labels" / f"{s}{get_corpus(c).label_ext}")
+            ok = ok and a.dtype == b.dtype and all(np.array_equal(a[f], b[f])
+                                                   for f in a.dtype.names)
+        phnm3_ok[c] = bool(ok)
+        if not ok:
+            failures.append(f"phnm3 of {c}: {written[c]}")
+
+    # 2. metadata: scan, validate, splits, training pairs
+    t0 = time.perf_counter()
+    metas, meta_rec = {}, {}
+    for c in with_ema:
+        meta = SpeakerMetadata(c, "spk", str(root / c), ema_rate=CORPUS_LAYOUTS[c].ema_sr).scan(
+            str(root / c / "labels"), str(root / c / "ema"))
+        meta.validate_ema()
+        meta.extract_durations()
+        meta.set_splits()
+        X, y = meta.agg_Xy_split("train")
+        valid = {s.stem: s.valid for s in meta.get_sentences()}
+        want = {s: (c, int(s[-3:])) != EMA_NAN_SENTENCE for s in stems[c]}
+        meta_rec[c] = dict(ema_rate=meta.ema_rate, valid=valid,
+                           durations_s=[s.duration for s in meta.get_sentences()],
+                           train_pairs=len(X),
+                           ema_shapes_100hz=[list(e.shape) for e in y])
+        if (valid != want or len(X) != sum(want.values()) or len(y) != len(X)
+                or not all(e.shape[1] == 12 and np.isfinite(e).all() for e in y)):
+            failures.append(f"metadata of {c}: {meta_rec[c]}")
+        metas[c] = meta
+    walls["metadata_s"] = time.perf_counter() - t0
+
+    # 3. v1 synthesis through the CLI, on a filelist laid out as v1's corpus
+    art_dir = root / "phnm" / "encoded_audio_en" / "emasrc"
+    art_dir.mkdir(parents=True)
+    r = np.random.default_rng(18)
+    lines = []
+    for c in EMA_CORPORA:
+        for s in stems[c]:
+            tr = analytic[c][s]
+            art = np.concatenate([tr, 120 + 20 * r.standard_normal((len(tr), 1)),
+                                  r.uniform(0.1, 1.0, (len(tr), 1))], axis=1)
+            np.save(art_dir / f"{s}.npy", art.astype(np.float32))
+            lines.append(f"DUMMY/wavs/{s}.wav|DUMMY/phnm/phnm3/{s}_phnm3.npy")
+    (root / "phnm.txt").write_text("\n".join(lines))
+    (root / "one.txt").write_text(lines[len(stems["mngu0"])])  # MOCHA's first sentence
+    model = build_model(get_preset("v1").model, device="cpu", seed=21)
+    save_checkpoint(str(root / "ckpt"), "v1", model.state_dict())
+
+    def synthesize(tag, filelist, steps, device, extra=()):
+        return cli_synthesize.main([
+            "--preset", "v1", "--ckpt", str(root / "ckpt" / "v1"), "--filelist",
+            str(root / filelist), "--data-root", str(root), "--save-dir", str(root / tag),
+            "--n-timesteps", str(steps), "--solver", "euler", "--device", device, *extra])
+
+    for f in counters + plains:
+        setattr(f, "launches" if f in counters else "cuda_calls", 0)
+    GradLogPEstimator2d.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = synthesize("art", "phnm.txt", N_STEPS, str(dev))
+    torch.cuda.synchronize()
+    walls["synthesis_s"] = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    plain = {f.__name__: f.cuda_calls for f in plains}
+    n = len(lines)
+    want = {"resblock2d": 13 * N_STEPS * n, "downsample2d": 2 * N_STEPS * n,
+            "conv_transpose2d": 2 * N_STEPS * n, "mrf_stage": 0, "upsample1d": 0}
+    arts = {Path(p).stem: np.load(p) for p in paths}
+    frames = {k: int(a.shape[1]) for k, a in arts.items()}
+    if launches != want or any(plain.values()) or GradLogPEstimator2d.cuda_calls:
+        failures.append(f"synthesis: launches {launches}, expected {want}; plain {plain}; "
+                        f"module path {GradLogPEstimator2d.cuda_calls}")
+    if sorted(arts) != sorted(s for c in EMA_CORPORA for s in stems[c]) or not all(
+            a.shape[0] == 29 and np.isfinite(a).all() for a in arts.values()):
+        failures.append(f"synthesis: artifacts {frames}")
+
+    # 4. quanti of the artifacts against the corpus EMA at 50 Hz, one CSV
+    t0 = time.perf_counter()
+    out_csv = root / "quanti.csv"
+    quanti = {c: quanti_art_corpus(str(root / "art"), metas[c], out_csv=str(out_csv))
+              for c in with_ema}
+    walls["quanti_s"] = time.perf_counter() - t0
+    with open(out_csv) as f:
+        rows = list(csv.reader(f))
+    valid_stems = sorted(s for c in with_ema for s, v in meta_rec[c]["valid"].items() if v)
+    csv_ok = (rows[0] == ["sample_id", "dtw", "ema_pcc"]
+              and sorted(row[0] for row in rows[1:]) == valid_stems
+              and all(np.isfinite([float(row[1]), float(row[2])]).all() for row in rows[1:]))
+    if not csv_ok:
+        failures.append(f"quanti CSV: {rows}")
+
+    # 5. control: the corpus channels at 50 Hz in the decoder rows, plus 1% noise
+    ctrl = root / "control"
+    ctrl.mkdir()
+    for c in with_ema:
+        for s in stems[c]:
+            tr = analytic[c][s]
+            a = r.standard_normal((29, len(tr))).astype(np.float32)
+            a[14:26] = tr.T + 0.01 * r.standard_normal(tr.T.shape)
+            np.save(ctrl / f"{s}.npy", a)
+    t0 = time.perf_counter()
+    control = {c: quanti_art_corpus(str(ctrl), metas[c]) for c in with_ema}
+    walls["control_quanti_s"] = time.perf_counter() - t0
+    control_pcc = {c: min(v["ema_pcc"] for v in res.values()) for c, res in control.items()}
+    if not all(len(control[c]) == sum(meta_rec[c]["valid"].values())
+               and control_pcc[c] > TOL_EMA_CONTROL_PCC for c in with_ema):
+        failures.append(f"control: min PCC {control_pcc} (<= {TOL_EMA_CONTROL_PCC}?)")
+
+    # 6. one sentence on the card against the CPU: 4 steps, temperature 1e6
+    g, c_ = (np.load(synthesize(f"one_{device}", "one.txt", 4, device,
+                                ("--temperature", "1e6"))[0])
+             for device in (str(dev), "cpu"))
+    err = float(np.abs(g - c_).max()) if g.shape == c_.shape else math.inf
+    vs_cpu = dict(file=lines[len(stems["mngu0"])].split("|")[0], frames=int(g.shape[1]),
+                  steps=4, max_abs_err=err, max_abs_cpu=float(np.abs(c_).max()), tol=TOL_WAV,
+                  input_map_equal=bool(g.shape == c_.shape and np.array_equal(g[28], c_[28])))
+    vs_cpu["ok"] = err <= TOL_WAV and vs_cpu["input_map_equal"]
+    if not vs_cpu["ok"]:
+        failures.append(f"card vs CPU: {vs_cpu}")
+
+    emit({"ema_corpus": {
+        "card": card, "corpora": {c: len(stems[c]) for c in EMA_CORPORA},
+        "seconds_of_speech": sum(len(a) / 50 for c in EMA_CORPORA for a in analytic[c].values()),
+        "phnm3_files_equal_reader": phnm3_ok, "metadata": meta_rec,
+        "synthesis": dict(entry="cli.synthesize.main", preset="v1", solver="euler",
+                          steps=N_STEPS, sentences=n, frames=frames, launches=launches,
+                          expected_launches=want, plain_calls_on_card=plain,
+                          module_path_calls_on_card=GradLogPEstimator2d.cuda_calls),
+        "quanti": quanti,
+        "csv_rows": len(rows) - 1, "csv_ok": csv_ok,
+        "control_min_pcc": control_pcc, "control_tol": TOL_EMA_CONTROL_PCC,
+        "card_vs_cpu": vs_cpu, "walls": walls,
+        "phase_s": time.perf_counter() - t_phase}})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("ema_corpus: " + "; ".join(failures))
+    return launches
+
+
 def main():
     if not (ROOT / "arttts_tpu_torch" / "csrc").is_dir():
         fail("arttts_tpu_torch/ is not beside chip_smoke.py: run from a checkout")
@@ -3220,8 +3525,12 @@ def main():
              f"{cpu_check}")
 
     # ---- 7. where the time goes: one bench-shape request under the profiler --
+    from arttts_tpu_torch.utils import profiling, trace_analysis
+
     x, n = texts[-1], requests[-1][1]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trace_dir = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profiling.trace(str(trace_dir)) as prof:
         t0 = time.perf_counter()
         sampler.synthesize_to_wav(model, vocoder, gen, x, torch.tensor([n]),
                                   n_timesteps=N_STEPS, max_frames=768,
@@ -3252,6 +3561,20 @@ def main():
         return by_name, sum(ms for ms, _ in by_name.values()), by_family, calls
 
     by_name, busy, by_family, calls = kernel_time(prof)
+    # the same profile written as a Chrome trace and read back by
+    # utils/trace_analysis: the busy union and the families' device time must
+    # agree with the sums above within 1% (one stream: a union is a sum)
+    t_read = time.perf_counter()
+    helper_busy = trace_analysis.device_busy_seconds(str(trace_dir)) * 1e3
+    helper_fam = trace_analysis.grouped_report(str(trace_dir), families)
+    trace_check = dict(file=Path(trace_analysis._latest_trace_file(str(trace_dir))).name,
+                       device_events=len(trace_analysis.load_device_events(str(trace_dir))),
+                       read_s=time.perf_counter() - t_read, device_busy_ms=helper_busy,
+                       device_kernel_ms=busy, busy_rel_diff=abs(helper_busy - busy) / busy,
+                       kernel_ms_by_family=helper_fam,
+                       family_rel_diff={f: abs(helper_fam[f] - ms) / ms
+                                        for f, ms in by_family.items() if ms})
+    shutil.rmtree(trace_dir, ignore_errors=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
     k1_by_part = {part: dict(ms=0.0, launches_per_evaluation=0.0) for part in k1_parts}
     for k, (ms, c) in by_name.items():
@@ -3269,7 +3592,14 @@ def main():
                                            ("K2 downsample2d", "K3 conv_transpose2d")
                                            if calls[f]},
                     "kernels_by_time": [{"name": k[:90], "ms": ms, "count": c}
-                                        for k, (ms, c) in top]}})
+                                        for k, (ms, c) in top],
+                    "trace_analysis": trace_check}})
+    if trace_check["busy_rel_diff"] > 0.01:
+        fail(f"trace: device_busy_seconds {helper_busy} ms against the profiler's {busy} ms")
+    if (helper_fam.keys() != by_family.keys() or any(not ms and helper_fam[f] for f, ms in
+                                                     by_family.items())
+            or max(trace_check["family_rel_diff"].values()) > 0.01):
+        fail(f"trace: grouped_report {helper_fam} against kernel_ms_by_family {by_family}")
 
     # ---- 7b. where the time goes in bf16: the bench-shape request and a B=4
     # decode at bucket 384 under the profiler, float32 then bf16 ------------
@@ -3742,6 +4072,9 @@ def main():
     # ---- 16. sample_sp: the SP score function and synthesize(mesh=...) ---------
     sample_sp_phase(card, dev, ranks)
 
+    # ---- 17. ema_corpus: the EMA corpora, v1 over them, quanti against their EMA --
+    ema_launches = ema_corpus_phase(card, dev, counters, plains)
+
     # ---- the kernels line --------------------------------------------------
     meta = {
         "resblock2d": ("arttts_tpu_torch/csrc/resblock2d.cu",
@@ -3813,6 +4146,8 @@ def main():
                                "cli": cli_launches[name],
                                "train_presets": train_presets_launches[name],
                                "eval": eval_launches[name],
+                               **({"ema_corpus": ema_launches[name]}
+                                  if name not in ("mrf_stage", "upsample1d") else {}),
                                **({"train_vocoder": vocoder_launches[name]}
                                   if name in ("mrf_stage", "upsample1d") else {})}
                         for name in meta}

@@ -30,6 +30,7 @@ from arttts_tpu_torch.voxcommunis import data as pdata
 from arttts_tpu_torch.voxcommunis import decoder as pdec
 from arttts_tpu_torch.voxcommunis import io as pvio
 from arttts_tpu_torch.voxcommunis import utils as putils
+from tests.voxcommunis_layout import write_layout as _layout
 
 # single segments, affricates with tie bars, diphthongs (two components),
 # diacritics (length, aspiration, nasalisation), NFC input, tone letters,
@@ -124,40 +125,6 @@ def test_sequence_helpers():
     assert putils.unique_consecutive(seq, True) == jutils.unique_consecutive(seq, True)
     assert putils.unique_consecutive(seq) == jutils.unique_consecutive(seq)
     assert putils.flatten_lists([[1, 2], [], [3]]) == jutils.flatten_lists([[1, 2], [], [3]])
-
-
-def _layout(root, rng, langs=("ab", "it"), n=3, art_frames=(30, 41, 25)):
-    """A synthetic VoxCommunis layout: per language a manifest (`{lang}.tsv`
-    under `manifests/`) over 16 kHz wavs, an alignment (`{lang}.align` under
-    `alignments/`, 100 Hz phones), SPARC tracks under
-    `encoded_audio_multi/{lang}/emasrc` and 1024-d speaker pre-embeddings
-    under `spk_preemb`. One merged manifest and alignment at the root too."""
-    (root / "manifests").mkdir()
-    (root / "alignments").mkdir()
-    merged_align = []
-    for lang in langs:
-        wavs = root / "wavs" / lang
-        wavs.mkdir(parents=True)
-        enc = root / "encoded_audio_multi" / lang
-        (enc / "emasrc").mkdir(parents=True)
-        (enc / "spk_preemb").mkdir(parents=True)
-        lines = []
-        for i in range(n):
-            fid = f"cv_{lang}_{lang}_{i:04d}"
-            jio.save_wav(wavs / f"{fid}.wav", rng.standard_normal(800 + 160 * i) * 0.1, 16000)
-            art = rng.standard_normal((art_frames[i % len(art_frames)], 14)).astype(np.float32)
-            art[:, 13] = np.abs(art[:, 13]) + 0.1  # loudness > 0
-            np.save(enc / "emasrc" / f"{fid}.npy", art)
-            np.save(enc / "spk_preemb" / f"{fid}.npy", rng.standard_normal(1024).astype(np.float32))
-            phones = []
-            for p in rng.choice(["a", "t", "t͡ʃ", "aɪ", "kʰ", "SIL", "ɛ", "˥"], size=6 + i):
-                phones += [str(p)] * int(rng.integers(2, 9))
-            lines.append(f"{fid}\t{' '.join(phones)}")
-        jvio.write_manifest(wavs, root / "manifests" / f"{lang}.tsv")
-        (root / "alignments" / f"{lang}.align").write_text("\n".join(lines) + "\n")
-        merged_align += lines
-    jvio.write_manifest(root / "wavs", root / "all.tsv")
-    (root / "all.align").write_text("\n".join(merged_align) + "\n")
 
 
 def _same_items(p_ds, j_ds):

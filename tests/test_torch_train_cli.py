@@ -256,7 +256,7 @@ class _Recorder:
     def add_scalar(self, tag, value, step):
         self.scalars[tag] = value
 
-    def add_image(self, tag, img, step):
+    def add_image(self, tag, img, step, dataformats="CHW"):
         self.images[tag] = img
 
 
