@@ -90,7 +90,7 @@ def main(argv=None):
                 if args.valid_filelist else None)
     language_upsample = (args.language_upsample if args.language_upsample is not None
                          else (cfg.data.language_upsample or None))
-    main_rank = mesh is None or mesh.coords["data"] == 0
+    main_rank = mesh is None or mesh.coords == {"data": 0, "model": 0}
     writer = tensorboard_writer(cfg.train.log_dir) if main_rank else None
     try:
         trainer = Trainer(cfg, train_ds, valid_dataset=valid_ds, tb_writer=writer,

@@ -27,6 +27,17 @@ world_size * (its numerators / the global counts), and DDP's gradient mean
 is the global loss's gradient. The reported parts are all-reduced, the
 same on every rank, and the clip and the norm act on the all-reduced
 gradients, so every rank takes the same update.
+
+Tensor parallelism (a model `parallel/tp.py:shard_tp` sharded over the
+mesh's "model" axis, with or without `ddp` over its "data" axis): the
+forward and backward run inside `gathered(model)`, one gather of the
+shards, and each rank keeps its slice of the full gradient. The global
+norm and the per-submodule clip need the squares of whole gradients, so
+the shards' squares are summed over the model row first, and the row
+takes its first rank's gradients of the replicated parameters
+(`TensorParallel.reduce_gradients`); Adam then updates each shard, which
+equals slicing the full update. A model `replicate_tp` laid out whole over
+the row takes its first rank's gradients the same way.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from arttts_tpu_torch.parallel.tp import gathered, tensor_parallel
 from arttts_tpu_torch.train.losses import grad_tts_loss, loss_denominators
 
 # The reference clips only the encoder and decoder parameter groups; the
@@ -51,20 +63,32 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g**2) for g in tensors))
 
 
-def per_submodule_clip(model: torch.nn.Module, max_norm: float) -> None:
-    """Clip the gradients of each top-level submodule (the port's `encoder`
-    and `decoder`) to global norm `max_norm`, in place, with the scale
-    min(1, max_norm / (norm + 1e-6)): the reference clips its encoder and
-    decoder separately, never with one global clip, and leaves the speaker
-    modules (`UNCLIPPED_SUBMODULES`) unclipped."""
-    for name, child in model.named_children():
-        if name in UNCLIPPED_SUBMODULES:
-            continue
-        grads = [p.grad for p in child.parameters() if p.grad is not None]
-        if grads:
-            scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
-            for g in grads:
-                g.mul_(scale)
+def clip_gradients(model: torch.nn.Module, max_norm: float) -> torch.Tensor:
+    """The norm of all gradients (before the clip); then each top-level
+    submodule's gradients (the port's `encoder` and `decoder`) clipped to
+    global norm `max_norm`, in place, with the scale min(1, max_norm /
+    (norm + 1e-6)): the reference clips its encoder and decoder
+    separately, never with one global clip, and leaves the speaker modules
+    (`UNCLIPPED_SUBMODULES`) unclipped. For a model laid out over a model
+    row (`parallel/tp.py`) the squares are of whole gradients: the shards'
+    are summed over the row, in the one all-reduce that gives the row its
+    first rank's gradients of the replicated parameters."""
+    def with_grads(params):
+        return [p for p in params if p.grad is not None]
+
+    clipped = [with_grads(child.parameters()) for name, child in model.named_children()
+               if name not in UNCLIPPED_SUBMODULES]
+    groups = [with_grads(model.parameters())] + [ps for ps in clipped if ps]
+    tp = tensor_parallel(model)
+    if tp is None:
+        squares = [sum(torch.sum(p.grad**2) for p in ps) for ps in groups]
+    else:
+        squares = tp.reduce_gradients(model, groups)
+    for params, sq in zip(groups[1:], squares[1:]):
+        scale = torch.clamp(max_norm / (torch.sqrt(sq) + 1e-6), max=1.0)
+        for p in params:
+            p.grad.mul_(scale)
+    return torch.sqrt(squares[0])
 
 
 def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.Adam:
@@ -114,30 +138,30 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
     Puts the model in training mode. Returns the loss parts, `total_loss`
     and `grad_norm` (the norm of all gradients before the clip), as device
     scalars. `ddp` (`data_parallel(model, loss_fn, group)`): `batch` is this
-    rank's rows of a global batch, and the step is the global batch's (see
-    the module note)."""
+    rank's rows of a global batch, and the step is the global batch's. A
+    model `shard_tp` sharded steps on its shards. The module note has both."""
     model.train()
     pinned = None
     if "pinned_t" in batch:
         pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
     optimizer.zero_grad(set_to_none=True)
-    if ddp is None:
-        total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
-        total.backward()
-    else:
-        dens = loss_denominators(batch["x_lengths"], batch["y_lengths"], out_size,
-                                 model.config.n_feats)
-        dist.all_reduce(dens, group=ddp.process_group)
-        total, parts = ddp(batch, generator, out_size, pinned, dens)
-        (dist.get_world_size(ddp.process_group) * total).backward()
-        # this rank's shares of the global parts -> the global parts
-        names = list(parts)
-        shares = torch.stack([parts[k].detach() for k in names])
-        dist.all_reduce(shares, group=ddp.process_group)
-        parts = dict(zip(names, shares.unbind()))
-        total = shares.sum()
-    grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
-    per_submodule_clip(model, grad_clip_norm)
+    with gathered(model):
+        if ddp is None:
+            total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
+            total.backward()
+        else:
+            dens = loss_denominators(batch["x_lengths"], batch["y_lengths"], out_size,
+                                     model.config.n_feats)
+            dist.all_reduce(dens, group=ddp.process_group)
+            total, parts = ddp(batch, generator, out_size, pinned, dens)
+            (dist.get_world_size(ddp.process_group) * total).backward()
+            # this rank's shares of the global parts -> the global parts
+            names = list(parts)
+            shares = torch.stack([parts[k].detach() for k in names])
+            dist.all_reduce(shares, group=ddp.process_group)
+            parts = dict(zip(names, shares.unbind()))
+            total = shares.sum()
+    grad_norm = clip_gradients(model, grad_clip_norm)
     optimizer.step()
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["total_loss"] = total.detach()

@@ -24,12 +24,21 @@ device, `cli/train.py --mesh` under `torch.distributed.run`): rank i of
 the axis batches its rows of the same global batches at the fixed buckets
 `config.data.max_text_len` / `max_frame_len`, draws from its own
 generator (seed + i), and steps on the global batch's loss
-(`train/step.py`, K6 on its rows; DDP broadcasts rank 0's parameters
-when it wraps the model). Every rank validates on the whole validation
-set, as the JAX trainer does; the early-stopping decision is taken on
-losses averaged over the ranks, so all leave the loop together; rank 0
-alone logs, synthesises the samples and writes the checkpoints, each
-followed by a barrier, and every rank resumes from the same files.
+(`train/step.py`, K6 on its rows; DDP over the "data" axis broadcasts
+its first rank's parameters when it wraps the model). Every rank
+validates on the whole validation set, as the JAX trainer does; the
+early-stopping decision is taken on losses averaged over the ranks, so
+all leave the loop together; the mesh's rank (0, 0) alone logs,
+synthesises the samples and writes the checkpoints, each followed by a
+barrier over the whole mesh, and every rank resumes from the same files.
+
+A "model" axis over 1 replicates the state over it, as the JAX trainer
+does (`parallel/tp.py:shard_tp` is the train step's layout, not the
+trainer's): the ranks of a model row share their data coordinate, so they
+batch the same rows and draw from the same generator, and
+`parallel/tp.py:replicate_tp` gives the row its first rank's gradients
+each step (on the card the backward's bits differ between ranks), so they
+take the same update.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from arttts_tpu_torch.data.batching import DataLoader
 from arttts_tpu_torch.eval.metrics import normalized_dtw_score
 from arttts_tpu_torch.models.tts import build_model
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
+from arttts_tpu_torch.parallel.tp import replicate_tp
 from arttts_tpu_torch.train.losses import loss_for_model
 from arttts_tpu_torch.train.step import data_parallel, eval_step, make_optimizer, train_step
 from arttts_tpu_torch.utils.early_stopping import EarlyStopping
@@ -74,18 +84,20 @@ class Trainer:
         others' ignored). The model is built from `config.train.random_seed`
         on `device`. `language_upsample`: the training loader's language
         upsampling factor (None: off). `mesh` (`parallel/mesh.py`): data
-        parallelism over its "data" axis (see the module note)."""
+        parallelism over its "data" axis, the state replicated over its
+        "model" axis (see the module note)."""
         self.config = config
         self.loss_fn = loss_for_model(config.model.name)
         self.device = resolve(device)
         t = config.train
         self.model = build_model(config.model, device=self.device, seed=t.random_seed).train()
         self.optimizer = make_optimizer(self.model, t.learning_rate)
+        self.mesh = mesh
         host_id, num_hosts = (0, 1) if mesh is None else (mesh.coords["data"],
                                                             mesh.shape["data"])
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise ValueError(f"the trainer shards the batch only, got a mesh of {mesh.shape}")
-        self.is_main = host_id == 0
+        self.is_main = mesh is None or mesh.coords == {"data": 0, "model": 0}
+        if mesh is not None:
+            replicate_tp(mesh, self.model)
         self.ddp = None
         if num_hosts > 1:
             self.ddp = data_parallel(self.model, self.loss_fn, mesh.groups["data"])
@@ -136,8 +148,13 @@ class Trainer:
         return self.start_epoch
 
     def _barrier(self) -> None:
-        if self.ddp is not None:
-            dist.barrier(group=self.ddp.process_group)
+        """Wait for every rank of the mesh: its "data" column, then its
+        "model" row (each column has met before any row meets)."""
+        if self.mesh is None:
+            return
+        for axis in ("data", "model"):
+            if self.mesh.groups[axis] is not None:
+                dist.barrier(group=self.mesh.groups[axis])
 
     def _save(self, name: str, epoch: int) -> None:
         if self.is_main:

@@ -213,7 +213,26 @@ fatal on failure (exit code 1, no result line):
    against the corpus EMA at 50 Hz (one finite CSV row a valid sentence);
    a control of the corpus channels plus 1% noise (PCC above 0.95 for each
    corpus with EMA); one sentence card against CPU (phase 10's v1 check);
-   walls by stage.
+   walls by stage;
+18. train_tp: tensor parallelism on phase 15's two ranks, run after phase
+   16 and before 17: v2 at full width sharded by `parallel/tp.py:shard_tp`
+   over a 1 x 2 mesh (each rank stores half of every sharded tensor and of
+   its Adam moments), two `train_step`s of phase 15's global batches of 16
+   with cuDNN's deterministic algorithms, against the one-process steps
+   each rank runs just before in the same mode (losses within TOL_DP_LOSS
+   of those and of phase 15's; the parameters within TOL_TP_DET of the
+   same rank's and within the CPU tests' band of phase 15's; the ranks'
+   gathered parameters bit for bit equal), K6 once a step on each
+   rank and no plain MAS on the card, two all-reduces a step (one gather of
+   the shards, one of the gradients' squares with the replicated
+   gradients), each rank's stored parameter and Adam bytes against the
+   one-process figure (0.45-0.55x), the step walls and one gather alone;
+   then `Trainer` on a 1 x 2 mesh (the
+   state replicated over the model axis, 8 rows a rank, the row on rank 0's
+   gradients: one all-reduce a step) for an epoch and a resume under
+   `build/chip_smoke_tp/` (removed after): rank 0 alone writes the
+   checkpoints, the ranks end bit for bit equal, both resume to the saved
+   state.
 
 Prints JSON lines; the `{"kernels": [...]}` line (K1-K4 with a `bf16`
 entry each) and the card line come before the last, which is
@@ -1862,12 +1881,15 @@ def _dp_rank_job(batches, out_size, lr, save_to):
                 params_digest=_digest(model.parameters()))
 
 
-def _dp_trainer_job(corpus, logs):
-    """Phase 15 on one rank: `Trainer(mesh=...)` on the seeded v2 corpus
-    under `corpus` (the preset's fixed buckets, 4 rows a rank of a global
-    batch of 8, a save every epoch), one epoch with K6 counted, then a second
-    `Trainer` resumed from the first's `grad_final`: its weights and Adam's
-    state against the first's, by digest."""
+def _dp_trainer_job(corpus, logs, n_model=1):
+    """Phases 15 and 18 on one rank: `Trainer(mesh=...)` on the seeded v2
+    corpus under `corpus` (a global batch of 8, a save every epoch) over a
+    mesh of the ranks with a "model" axis of `n_model` (phase 15: 2 x 1,
+    the preset's fixed buckets, 4 rows a rank; phase 18: 1 x 2, the state
+    replicated over the model axis, 8 rows a rank), one epoch with K6
+    counted, then a second `Trainer` resumed from the first's `grad_final`:
+    its weights and Adam's state against the first's, by digest; and the
+    checkpoints this rank wrote."""
     import types
 
     import torch
@@ -1876,12 +1898,14 @@ def _dp_trainer_job(corpus, logs):
     from arttts_tpu_torch.data.datasets import build_dataset
     from arttts_tpu_torch.ops import mas as K6
     from arttts_tpu_torch.parallel.mesh import make_mesh
+    from arttts_tpu_torch.parallel.tp import tensor_parallel
+    from arttts_tpu_torch.train import trainer as trainer_mod
     from arttts_tpu_torch.train.trainer import Trainer
 
     exp = get_preset("v2")
     cfg = dataclasses.replace(exp, train=dataclasses.replace(
         exp.train, batch_size=DP_TRAINER_BATCH, save_every=1, val_every=1, log_dir=str(logs)))
-    mesh = make_mesh(device_type="cuda")
+    mesh = make_mesh(n_model=n_model, device_type="cuda")
     args = types.SimpleNamespace(data_root=str(corpus), cmudict=None, mel_cache=None,
                                  artic_dir=None)
     train_ds, valid_ds = (build_dataset(cfg, args, str(corpus / f), device=mesh.device)
@@ -1892,14 +1916,25 @@ def _dp_trainer_job(corpus, logs):
         return _digest([*trainer.model.state_dict().values(),
                         *(v for k in sorted(opt) for v in opt[k].values())])
 
+    saves, real_save = [], trainer_mod.save_checkpoint
+
+    def save(log_dir, name, *a, **k):
+        saves.append(name)
+        return real_save(log_dir, name, *a, **k)
+
     trainer = Trainer(cfg, train_ds, valid_dataset=valid_ds, device=mesh.device, mesh=mesh)
     K6.maximum_path.launches = K6.maximum_path_plain.cuda_calls = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.fit(n_epochs=1)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    trainer_mod.save_checkpoint = save
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(n_epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.save_checkpoint = real_save
     launches, plain = K6.maximum_path.launches, K6.maximum_path_plain.cuda_calls
+    tp = tensor_parallel(trainer.model)
     resumed = Trainer(cfg, train_ds, valid_dataset=valid_ds, device=mesh.device, mesh=mesh)
     start = resumed.resume(str(logs / "grad_final"))
     rows = trainer.train_loader.batcher.rows
@@ -1907,7 +1942,9 @@ def _dp_trainer_job(corpus, logs):
                 valid_batches=len(trainer.valid_loader.batcher), fit_s=fit_s,
                 k6_launches=launches, plain_mas_on_card=plain, ddp=trainer.ddp is not None,
                 digest=state_digest(trainer), resumed_digest=state_digest(resumed),
-                resume_start_epoch=start, checkpoints=sorted(q.name for q in logs.iterdir()))
+                resume_start_epoch=start, checkpoints=sorted(q.name for q in logs.iterdir()),
+                saves=saves, mesh=[mesh.shape["data"], mesh.shape["model"]],
+                row_allreduces=None if tp is None else [tp.comm.calls, tp.comm.bytes])
 
 
 def _local_stats_block(block, x, m, length, comm, eps):
@@ -2055,6 +2092,31 @@ def write_text_mel_corpus(root, n_train=16, n_valid=8):
     (root / "valid.txt").write_text("\n".join(lines[n_train:]))
 
 
+def dp_batches():
+    """Phases 15 and 18's two global batches of DP_BATCH (numpy): seeded v2
+    utterances at the preset's fixed buckets with pinned draws."""
+    import numpy as np
+
+    from arttts_tpu_torch.core.config import get_preset
+    from arttts_tpu_torch.data.batching import DataLoader
+
+    exp = get_preset("v2")
+    out_size, F_ = exp.train.out_size, exp.model.n_feats
+    ds = SyntheticPairs(2 * DP_BATCH, 50, F_, n_vocab=exp.model.encoder.n_vocab)
+    loader = DataLoader(ds, DP_BATCH, seed=0, min_frames=out_size,
+                        text_bucket=exp.data.max_text_len, frame_bucket=exp.data.max_frame_len)
+    r = np.random.default_rng(51)
+    batches = []
+    for b in loader:
+        y_len = b["y_lengths"]
+        batches.append(dict(b, pinned_t=r.uniform(0.05, 0.95, DP_BATCH).astype(np.float32),
+                            pinned_z=r.standard_normal((DP_BATCH, out_size, F_)).astype(
+                                np.float32),
+                            pinned_offsets=(r.random(DP_BATCH) * np.maximum(y_len - out_size, 1)
+                                            ).astype(np.int32)))
+    return batches
+
+
 def train_dp_phase(card, dev, K6):
     """Phase 15 (`train_dp`): v2 at full width, data-parallel over two gloo
     ranks sharing cuda:0 with CUDA tensors: two steps of the global batch of
@@ -2072,12 +2134,11 @@ def train_dp_phase(card, dev, K6):
     checkpoint, trains epoch 2 and writes its own. Two ranks on one card
     measure the collectives' cost and correctness, not scaling. Returns (the
     K6 launches of the steps and of the Trainer, each summed over the ranks,
-    the rank processes for phase 16)."""
-    import numpy as np
+    the rank processes for phases 16 and 18, and the one-process steps'
+    batches, metrics, parameters and walls for phase 18)."""
     import torch
 
     from arttts_tpu_torch.core.config import get_preset
-    from arttts_tpu_torch.data.batching import DataLoader
     from arttts_tpu_torch.train.step import make_optimizer, train_step
 
     t_phase = time.perf_counter()
@@ -2085,19 +2146,8 @@ def train_dp_phase(card, dev, K6):
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     exp = get_preset("v2")
-    out_size, lr, F_ = exp.train.out_size, exp.train.learning_rate, exp.model.n_feats
-    ds = SyntheticPairs(2 * DP_BATCH, 50, F_, n_vocab=exp.model.encoder.n_vocab)
-    loader = DataLoader(ds, DP_BATCH, seed=0, min_frames=out_size,
-                        text_bucket=exp.data.max_text_len, frame_bucket=exp.data.max_frame_len)
-    r = np.random.default_rng(51)
-    batches = []
-    for b in loader:
-        y_len = b["y_lengths"]
-        batches.append(dict(b, pinned_t=r.uniform(0.05, 0.95, DP_BATCH).astype(np.float32),
-                            pinned_z=r.standard_normal((DP_BATCH, out_size, F_)).astype(
-                                np.float32),
-                            pinned_offsets=(r.random(DP_BATCH) * np.maximum(y_len - out_size, 1)
-                                            ).astype(np.int32)))
+    out_size, lr = exp.train.out_size, exp.train.learning_rate
+    batches = dp_batches()
     # the one-process step on the whole batches (before the ranks share the card)
     model = _v2_model(dev)
     opt = make_optimizer(model, lr)
@@ -2217,8 +2267,10 @@ def train_dp_phase(card, dev, K6):
     if failures:
         ranks.close()
         fail("train_dp: " + "; ".join(failures))
+    ref = dict(batches=batches, metrics=ref_metrics, params=ref_params,
+               walls_ms=[1e3 * w for w in ref_walls])
     return (r0["k6_launches"] + r1["k6_launches"], sum(result["trainer"]["k6_launches"]),
-            ranks)
+            ranks, ref)
 
 
 def sample_sp_phase(card, dev, ranks):
@@ -2232,7 +2284,7 @@ def sample_sp_phase(card, dev, ranks):
     `synthesize(mesh=...)` against the unsharded run (the kernels), within
     2% in relative L2; the collectives and the wall of an evaluation beside
     the module path's. Two ranks on one card measure the collectives' cost,
-    not scaling. Stops the rank processes."""
+    not scaling."""
     import numpy as np
     import torch
 
@@ -2251,7 +2303,6 @@ def sample_sp_phase(card, dev, ranks):
     x = r.integers(1, 100, (1, 96))
     synth = (x, np.array([96], np.int32), np.full((1, 96), SP_T / 96, np.float32))
     r0, r1 = ranks.run("_sp_rank_job", inputs, synth)
-    ranks.close()
     model = _v2_model(dev).eval()
     xt, mask, mu, t = (torch.from_numpy(a).to(dev) for a in inputs)
     walls = []
@@ -2307,6 +2358,258 @@ def sample_sp_phase(card, dev, ranks):
             and r0["qualname"] == "make_sp_score_fn.<locals>.score"
             and result["synthesize"]["frames"] == [SP_T] and int(y_len[0]) == SP_T):
         fail(f"sample_sp: {result}")
+
+
+# ---- phase 18 (`train_tp`) ----------------------------------------------------
+
+TP_GATHER_REPS = 3
+# every parameter after the two TP steps against the same rank's one-process
+# steps, both with cuDNN's deterministic algorithms: then two runs of either
+# step are the same bits, and they differ only by the order in which the
+# clip sums the gradients' squares (1.19e-7 in `scripts/tp_step_variance.py`)
+TOL_TP_DET = 2e-6
+
+
+def _tp_rank_job(batches, out_size, lr, save_to, deterministic=False):
+    """Phase 18 on one rank: first the one-process step (v2 unsharded, two
+    `train_step`s on the whole global batches, pinned draws) as this
+    process's reference; then v2 sharded by `shard_tp` over a 1 x 2 mesh,
+    the same two steps, K6 counted and the model row's all-reduces counted
+    a step; the stored bytes of the parameters and Adam's moments beside
+    the unsharded model's; one gather alone timed. Rank 0 saves the names,
+    the gathered parameters and the reference's (in the unsharded model's
+    order) to `save_to`. `deterministic`: both runs with cuDNN's
+    deterministic algorithms (`torch.backends.cudnn.deterministic`)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        return _tp_rank_steps(batches, out_size, lr, save_to)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _tp_rank_steps(batches, out_size, lr, save_to):
+    import torch
+    import torch.distributed as dist
+
+    from arttts_tpu_torch.ops import mas as K6
+    from arttts_tpu_torch.parallel.mesh import make_mesh
+    from arttts_tpu_torch.parallel.tp import gathered, shard_tp, tensor_parallel, tp_state_dict
+    from arttts_tpu_torch.train.step import make_optimizer, train_step
+
+    mesh = make_mesh(n_data=1, n_model=DP_RANKS, device_type="cuda")
+    dev = mesh.device
+    torch.cuda.empty_cache()  # phases 15-16's blocks
+    free_bytes = torch.cuda.mem_get_info(dev)[0]
+    tbs = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+    model = _v2_model(dev)
+    opt = make_optimizer(model, lr)
+    ref_metrics, ref_walls = [], []
+    for tb in tbs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, tb, None, out_size)
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+        ref_metrics.append({k: float(v) for k, v in m.items()})
+    ref_params = [p.detach().cpu() for p in model.parameters()]
+    del model, opt
+    torch.cuda.empty_cache()
+    model = _v2_model(dev)
+    names = [n for n, _ in model.named_parameters()]
+    full_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    shard_tp(mesh, model)
+    tp = tensor_parallel(model)
+    opt = make_optimizer(model, lr)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K6.maximum_path.launches = K6.maximum_path_plain.cuda_calls = 0
+    metrics, walls, comm = [], [], []
+    for tb in tbs:
+        calls, nbytes = tp.comm.calls, tp.comm.bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(model, opt, tb, None, out_size)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        comm.append([tp.comm.calls - calls, tp.comm.bytes - nbytes])
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches, plain = K6.maximum_path.launches, K6.maximum_path_plain.cuda_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    stored = sum(p.numel() * p.element_size() for p in model.parameters())
+    adam = sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim() > 0)
+    gather_ms = []
+    with torch.no_grad():
+        for _ in range(TP_GATHER_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with gathered(model):
+                torch.cuda.synchronize()
+            gather_ms.append(1e3 * (time.perf_counter() - t0))
+    full = tp_state_dict(model)
+    params = [full[n].detach().cpu() for n in names]
+    if dist.get_rank() == 0:
+        torch.save({"names": names, "params": params, "one_process": ref_params}, save_to)
+    return dict(metrics=metrics, step_wall_ms=[1e3 * w for w in walls],
+                one_process_metrics=ref_metrics,
+                one_process_step_wall_ms=[1e3 * w for w in ref_walls],
+                free_bytes_at_start=free_bytes,
+                allreduces_a_step=comm, k6_launches=launches, plain_mas_on_card=plain,
+                sharded_tensors=len(tp.entries), tensors=len(names),
+                sharded_elements=sum(int(torch.Size(e.full_shape).numel()) for e in tp.entries),
+                elements=sum(int(p.numel()) for p in params),
+                full_param_bytes=full_bytes, stored_param_bytes=stored, adam_bytes=adam,
+                peak_allocated_bytes=peak, gather_alone_ms=gather_ms,
+                params_digest=_digest(params))
+
+
+def train_tp_phase(card, ranks, ref):
+    """Phase 18 (`train_tp`): v2 at full width sharded by
+    `parallel/tp.py:shard_tp` over phase 15's two gloo ranks on cuda:0 (a
+    1 x 2 mesh: each rank stores half of every sharded tensor and of its
+    Adam moments, and gathers them once a step): two steps of phase 15's
+    global batches of 16 (pinned draws, dropout 0) against the one-process
+    steps on the same batches that each rank runs just before, both with
+    cuDNN's deterministic algorithms (with its default ones the backward's
+    bits change from run to run, and two runs land a few parameters over
+    2e-6 apart): the losses within TOL_DP_LOSS of those and of phase 15's;
+    the parameters within TOL_TP_DET of the same rank's and within the CPU
+    tests' band of phase 15's (cuDNN's default algorithms), the tensors
+    that hold the most reported; the ranks' gathered parameters bit for bit
+    equal; K6 once a step on each rank and no plain MAS on the
+    card, two all-reduces of the model row a step (the gather, and the
+    gradients' squares with the replicated gradients); each rank's stored
+    parameter and Adam bytes against the one-process figure; the step
+    walls and one gather alone. Then `Trainer` on the same ranks as a 1 x 2
+    mesh (the state replicated over the model axis, as the JAX trainer
+    does; 8 rows a rank; the row takes rank 0's gradients, one all-reduce a
+    step) for an epoch and a resume: rank 0 alone writes the checkpoints,
+    and the ranks end bit for bit equal. Stops the rank processes. Returns
+    the K6 launches of the steps and of the Trainer, each summed over the
+    ranks."""
+    import torch
+
+    from arttts_tpu_torch.core.config import get_preset
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    exp = get_preset("v2")
+    out_size, lr = exp.train.out_size, exp.train.learning_rate
+    batches = ref["batches"]
+    saved = root / "rank0.pt"
+    torch.cuda.empty_cache()  # the blocks this process holds from phases 1-16
+    free_bytes = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    r0, r1 = ranks.run("_tp_rank_job", batches, out_size, lr, str(saved), True)
+    steps_s = time.perf_counter() - t0
+    rank0 = torch.load(saved, weights_only=True)
+    names, tp_params = rank0["names"], rank0["params"]
+
+    def against(metrics_refs, params_ref):
+        """The TP steps against a one-process run's metrics (one list a
+        rank) and parameters: the losses' and the norm's worst relative
+        distance, the elements over 2e-6 and the tensors holding most."""
+        keys = ("total_loss", "dur_loss", "prior_loss", "diff_loss")
+        pairs = [(a, b) for got, mref in zip((r0, r1), metrics_refs)
+                 for a, b in zip(got["metrics"], mref)]
+        errs = [(p - q).abs() for p, q in zip(tp_params, params_ref)]
+        over = [int((e > 2e-6).sum()) for e in errs]
+        return dict(loss_rel_worst=max(abs(a[k] - b[k]) / abs(b[k]) for a, b in pairs for k in keys),
+                    grad_norm_rel_worst=max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                            for a, b in pairs),
+                    params_over_2e6=sum(over), params=sum(e.numel() for e in errs),
+                    params_worst=max(float(e.max()) for e in errs),
+                    most_over=[[n, c] for c, n in sorted(zip(over, names), reverse=True)[:3] if c])
+
+    # each rank's own one-process steps, run just before in the same process
+    # and mode; phase 15's, run in this process with cuDNN's default algorithms
+    own = against([r0["one_process_metrics"], r1["one_process_metrics"]], rank0["one_process"])
+    cross = against([ref["metrics"]] * DP_RANKS, ref["params"])
+    one_process = 3 * r0["full_param_bytes"]  # parameters, Adam's exp_avg and exp_avg_sq
+    result = dict(
+        card=card, preset="v2", mesh="1 x 2 (data x model)", ranks=DP_RANKS,
+        backend="gloo, CUDA tensors, one card", global_batch=DP_BATCH, rows_a_rank=DP_BATCH,
+        steps=len(batches), metrics_ranks=r0["metrics"],
+        metrics_one_process=r0["one_process_metrics"],
+        against_one_process_same_rank=own, against_phase15_one_process=cross,
+        ranks_bit_equal=r0["params_digest"] == r1["params_digest"],
+        k6_launches=[r0["k6_launches"], r1["k6_launches"]],
+        plain_mas_on_card=[r0["plain_mas_on_card"], r1["plain_mas_on_card"]],
+        sharded=dict(tensors=r0["sharded_tensors"], of_tensors=r0["tensors"],
+                     elements=r0["sharded_elements"], of_elements=r0["elements"]),
+        stored_bytes=dict(
+            one_process=one_process,
+            ranks=[q["stored_param_bytes"] + q["adam_bytes"] for q in (r0, r1)],
+            params=[q["stored_param_bytes"] for q in (r0, r1)],
+            adam=[q["adam_bytes"] for q in (r0, r1)],
+            share=[(q["stored_param_bytes"] + q["adam_bytes"]) / one_process for q in (r0, r1)]),
+        peak_allocated_bytes=[r0["peak_allocated_bytes"], r1["peak_allocated_bytes"]],
+        allreduces_a_step=[r0["allreduces_a_step"], r1["allreduces_a_step"]],
+        step_wall_ms={"rank0": r0["step_wall_ms"], "rank1": r1["step_wall_ms"],
+                      "one_process_in_rank": [r0["one_process_step_wall_ms"],
+                                              r1["one_process_step_wall_ms"]],
+                      "one_process_alone_B16": ref["walls_ms"]},
+        gather_alone_ms=[r0["gather_alone_ms"], r1["gather_alone_ms"]],
+        free_bytes_at_start={"parent": free_bytes, "ranks": [r0["free_bytes_at_start"],
+                                                              r1["free_bytes_at_start"]]},
+        steps_s=steps_s,
+        cudnn="deterministic algorithms (the TP steps and the same rank's one-process steps)",
+        tol=(f"losses rel {TOL_DP_LOSS} against both one-process runs; parameters within "
+             f"{TOL_TP_DET} of the same rank's one-process run; against phase 15's, parameter "
+             "changes over 2e-6 at most 1e-4 of the elements and none over 4e-4 (two Adam steps "
+             "at lr 1e-4); the ranks' gathered parameters bit for bit equal"),
+        note=("two ranks on one card, each on the whole batch: the sharded layout's memory, "
+              "its collectives' cost and correctness, not scaling"))
+    failures = []
+    if max(own["loss_rel_worst"], cross["loss_rel_worst"]) > TOL_DP_LOSS:
+        failures.append(f"losses off the one-process steps: {own}, {cross}")
+    if (own["params_worst"] > TOL_TP_DET or cross["params_over_2e6"] > 1e-4 * cross["params"]
+            or cross["params_worst"] > 4 * lr or not result["ranks_bit_equal"]):
+        failures.append(f"parameters: {own}, {cross}, ranks equal {result['ranks_bit_equal']}")
+    if result["k6_launches"] != [len(batches)] * DP_RANKS or any(result["plain_mas_on_card"]):
+        failures.append(f"K6 {result['k6_launches']}, plain MAS {result['plain_mas_on_card']}")
+    if any(c != 2 for q in (r0, r1) for c, _ in q["allreduces_a_step"]):
+        failures.append(f"all-reduces a step {result['allreduces_a_step']}, not 2")
+    if not all(0.45 < v < 0.55 for v in result["stored_bytes"]["share"]):
+        failures.append(f"stored bytes {result['stored_bytes']}")
+
+    # Trainer on the ranks as a 1 x 2 mesh: the state replicated over the model axis
+    corpus, logs = root / "corpus", root / "logs"
+    write_text_mel_corpus(corpus)
+    t0 = time.perf_counter()
+    tr = ranks.run("_dp_trainer_job", corpus, logs, DP_RANKS)
+    ranks.close()
+    result["trainer"] = dict(
+        mesh=tr[0]["mesh"], global_batch=DP_TRAINER_BATCH, rows=[q["rows"] for q in tr],
+        steps=tr[0]["steps"], valid_batches=tr[0]["valid_batches"],
+        fit_s=[q["fit_s"] for q in tr], k6_launches=[q["k6_launches"] for q in tr],
+        plain_mas_on_card=[q["plain_mas_on_card"] for q in tr],
+        checkpoints=tr[0]["checkpoints"], saves=[q["saves"] for q in tr],
+        resume_start_epoch=[q["resume_start_epoch"] for q in tr],
+        ranks_bit_equal=tr[0]["digest"] == tr[1]["digest"],
+        resumed_equal=[q["resumed_digest"] == q["digest"] for q in tr],
+        row_allreduces=[q["row_allreduces"] for q in tr],
+        wall_s=time.perf_counter() - t0)
+    k6_per_rank = tr[0]["steps"] + tr[0]["valid_batches"]
+    if not (not any(q["ddp"] for q in tr) and tr[0]["mesh"] == [1, DP_RANKS]
+            and all(q["row_allreduces"][0] == tr[0]["steps"] for q in tr)
+            and all(q["rows"] == [0, DP_TRAINER_BATCH] for q in tr)
+            and result["trainer"]["k6_launches"] == [k6_per_rank] * DP_RANKS
+            and not any(result["trainer"]["plain_mas_on_card"])
+            and {"grad_1", "grad_best", "grad_final"} <= set(tr[0]["checkpoints"])
+            and tr[0]["saves"] == ["grad_1", "grad_best", "grad_final"] and tr[1]["saves"] == []
+            and result["trainer"]["ranks_bit_equal"] and all(result["trainer"]["resumed_equal"])
+            and result["trainer"]["resume_start_epoch"] == [2, 2]):
+        failures.append(f"Trainer on a 1 x 2 mesh: {result['trainer']}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit({"train_tp": result})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        fail("train_tp: " + "; ".join(failures))
+    return r0["k6_launches"] + r1["k6_launches"], sum(result["trainer"]["k6_launches"])
 
 
 # ---- phase 17 (`ema_corpus`) -------------------------------------------------
@@ -4067,10 +4370,13 @@ def main():
     bf16_train_k6 = train_bf16_phase(card, dev, counters, plains, K6)
 
     # ---- 15. train_dp: two gloo ranks on the card, and cli.train --mesh on NCCL --
-    dp_k6, dp_trainer_k6, ranks = train_dp_phase(card, dev, K6)
+    dp_k6, dp_trainer_k6, ranks, dp_ref = train_dp_phase(card, dev, K6)
 
     # ---- 16. sample_sp: the SP score function and synthesize(mesh=...) ---------
     sample_sp_phase(card, dev, ranks)
+
+    # ---- 18. train_tp: shard_tp steps and a Trainer on a 1 x 2 mesh, same ranks --
+    tp_k6, tp_trainer_k6 = train_tp_phase(card, ranks, dp_ref)
 
     # ---- 17. ema_corpus: the EMA corpora, v1 over them, quanti against their EMA --
     ema_launches = ema_corpus_phase(card, dev, counters, plains)
@@ -4193,12 +4499,14 @@ def main():
         "replaces": "arttts_tpu/ops/mas_pallas.py:41",
         "tpu_wrappers": ["mas_pallas :180 (_mas_kernel :41, pallas_call :109)"],
         "launches": (train_launches["maximum_path"] + train_presets_launches["maximum_path"]
-                     + bf16_train_k6 + dp_k6 + dp_trainer_k6),
+                     + bf16_train_k6 + dp_k6 + dp_trainer_k6 + tp_k6 + tp_trainer_k6),
         "launches_by_path": {"training (v2)": train_launches["maximum_path"],
                              "train_presets": train_presets_launches["maximum_path"],
                              "train_bf16": bf16_train_k6,
                              "training (DP, 2 ranks)": dp_k6,
-                             "Trainer (DP, 2 ranks)": dp_trainer_k6},
+                             "Trainer (DP, 2 ranks)": dp_trainer_k6,
+                             "training (TP, 2 ranks)": tp_k6,
+                             "Trainer (1 x 2 mesh, 2 ranks)": tp_trainer_k6},
         "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
         "exact": all(c["exact_vs_plain"] and c["cells_off_oracle"] == 0 for c in mas_cases),
         "tolerance": "bit for bit against the plain version and the NumPy oracle",

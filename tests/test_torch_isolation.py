@@ -50,7 +50,7 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "models.utmos", "models.wavlm", "models.sparc_encoder", "audio.pitch",
                 "eval.utmos_scorer", "eval.quanti", "cli.score", "cli.pipeline",
                 "cli.encode_audio", "cli.demo", "utils.reference_weights",
-                "parallel.distributed", "parallel.mesh", "models.unet2d_sp"):
+                "parallel.distributed", "parallel.mesh", "parallel.tp", "models.unet2d_sp"):
         assert f"arttts_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -72,7 +72,7 @@ def test_port_sources_name_no_jax_import():
                 "models/utmos.py", "models/wavlm.py", "models/sparc_encoder.py",
                 "audio/pitch.py", "eval/utmos_scorer.py", "eval/quanti.py", "cli/score.py",
                 "cli/pipeline.py", "cli/encode_audio.py", "cli/demo.py",
-                "utils/reference_weights.py"):
+                "utils/reference_weights.py", "parallel/tp.py"):
         assert f"arttts_tpu_torch/{new}" in names, new
     # no read of the JAX package's data files either (its copies live in the port)
     from arttts_tpu_torch.core import paths

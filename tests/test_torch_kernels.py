@@ -33,6 +33,15 @@ from arttts_tpu_torch.ops.resblock2d import AttnWeights, BlockWeights, frame_mas
 from arttts_tpu_torch.ops.updown import conv_transpose2d, downsample2d
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs (`tests/test_torch_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

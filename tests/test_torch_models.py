@@ -36,6 +36,16 @@ from arttts_tpu_torch.models.tts import GradTTSModel as PGradTTS
 from arttts_tpu_torch.models.unet2d_fast import make_score_fn, masked_statistics
 from arttts_tpu_torch.utils.from_jax import grad_tts_state_dict, hifigan_state_dict
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs (`tests/test_torch_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_FEATS = 16
 VOC = dict(upsample_initial_channel=32)
 

@@ -33,6 +33,16 @@ from arttts_tpu_torch.ops.mrf import MRFBranch, mrf_stage_plain
 from arttts_tpu_torch.ops.upsample import upsample1d_plain
 from arttts_tpu_torch.utils.from_jax import spk_sparc_state_dict
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs (`tests/test_torch_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_MELS = 16
 RATES = dict(upsample_rates=(2, 2, 2, 2), upsample_kernel_sizes=(4, 4, 4, 4))
 SPARC_RATES = dict(upsample_scales=(2, 2, 2, 2), upsample_kernel_sizes=(4, 4, 4, 4))
