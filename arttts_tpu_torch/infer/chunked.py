@@ -25,6 +25,7 @@ import torch
 
 from arttts_tpu_torch.core.device import check_module, resolve
 from arttts_tpu_torch.models.hifigan import spk_sparc_forward_fast
+from arttts_tpu_torch.utils.profiling import span
 
 HOP = 256  # prod(upsample_rates) for both generator families
 
@@ -55,42 +56,44 @@ def vocode_chunked(
 
     apply_fn(c[, spk]) -> (B, W*hop, 1) takes float32 tensors on `device`:
     c (B, W, C) with W = chunk + 2*halo, B = win_batch (or 2 for a track no
-    longer than W), and `spk` broadcast to (B, spk.size)."""
-    T, C = feats.shape
-    W = chunk + 2 * halo
-    dev = resolve(device)
+    longer than W), and `spk` broadcast to (B, spk.size). The whole track
+    is one `arttts.vocode` span (`utils/profiling.py:span`)."""
+    with span("arttts.vocode"):
+        T, C = feats.shape
+        W = chunk + 2 * halo
+        dev = resolve(device)
 
-    def call(batch, nb):
-        c = torch.as_tensor(batch, dtype=torch.float32, device=dev)
-        if spk is None:
-            out = apply_fn(c)
-        else:
-            s = torch.as_tensor(np.asarray(spk, np.float32).reshape(1, -1), device=dev)
-            out = apply_fn(c, s.expand(nb, -1).contiguous())
-        return out[..., 0].cpu().numpy()
+        def call(batch, nb):
+            c = torch.as_tensor(batch, dtype=torch.float32, device=dev)
+            if spk is None:
+                out = apply_fn(c)
+            else:
+                s = torch.as_tensor(np.asarray(spk, np.float32).reshape(1, -1), device=dev)
+                out = apply_fn(c, s.expand(nb, -1).contiguous())
+            return out[..., 0].cpu().numpy()
 
-    if T <= W:  # two placements of one static window; stitch head + tail
-        m = min(halo, T // 2)
-        batch = np.zeros((2, W, C), feats.dtype)
-        batch[0, :T] = feats  # flush-left: true left edge
-        batch[1, W - T:] = feats  # flush-right: true right edge
-        wav = call(batch, 2)
-        return np.concatenate([wav[0, : (T - m) * hop], wav[1, (W - m) * hop:]])
+        if T <= W:  # two placements of one static window; stitch head + tail
+            m = min(halo, T // 2)
+            batch = np.zeros((2, W, C), feats.dtype)
+            batch[0, :T] = feats  # flush-left: true left edge
+            batch[1, W - T:] = feats  # flush-right: true right edge
+            wav = call(batch, 2)
+            return np.concatenate([wav[0, : (T - m) * hop], wav[1, (W - m) * hop:]])
 
-    starts, keeps = _window_starts(T, chunk, halo)
-    windows = np.stack([feats[s: s + W] for s in starts])
-    n = len(starts)
-    out = np.empty(T * hop, feats.dtype)
-    for g0 in range(0, n, win_batch):
-        grp = windows[g0: g0 + win_batch]
-        nb = grp.shape[0]
-        if nb < win_batch:  # pad the last group to the static batch shape
-            grp = np.concatenate([grp, np.zeros((win_batch - nb, W, C), feats.dtype)])
-        wav = call(grp, win_batch)
-        for j in range(nb):
-            g, l, k = keeps[g0 + j]
-            out[g * hop: (g + k) * hop] = wav[j, l * hop: (l + k) * hop]
-    return out
+        starts, keeps = _window_starts(T, chunk, halo)
+        windows = np.stack([feats[s: s + W] for s in starts])
+        n = len(starts)
+        out = np.empty(T * hop, feats.dtype)
+        for g0 in range(0, n, win_batch):
+            grp = windows[g0: g0 + win_batch]
+            nb = grp.shape[0]
+            if nb < win_batch:  # pad the last group to the static batch shape
+                grp = np.concatenate([grp, np.zeros((win_batch - nb, W, C), feats.dtype)])
+            wav = call(grp, win_batch)
+            for j in range(nb):
+                g, l, k = keeps[g0 + j]
+                out[g * hop: (g + k) * hop] = wav[j, l * hop: (l + k) * hop]
+        return out
 
 
 def vocode_sparc(module, feats: np.ndarray, spk_ft: np.ndarray, device="cuda",

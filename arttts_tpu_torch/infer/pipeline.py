@@ -43,6 +43,7 @@ from arttts_tpu_torch.infer.sampler import (
 from arttts_tpu_torch.models.hifigan import hifigan_forward_fast
 from arttts_tpu_torch.models.tts import GradTTSModel
 from arttts_tpu_torch.ops.shape import fix_len_compatibility
+from arttts_tpu_torch.utils.profiling import span
 
 
 def _sample_id(dataset, index: int) -> str:
@@ -142,47 +143,58 @@ def run_acoustic_inference_batched(config: ExperimentConfig, model, dataset, sav
     GroupNorm statistics to match per-sentence synthesis. Aligned-input
     items ("durations") take their bucket from the summed durations, the
     others from one encoder pass. Writes the same (29|161, T) artifacts;
-    returns their paths."""
-    model = with_masked_norm(model)
-    save_dir = Path(save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    is_artic = config.model.n_feats == 16
-    generator = torch.Generator(device=resolve(device)).manual_seed(seed)
-    items = [dataset[i] for i in range(len(dataset))]
-    order = sorted(range(len(items)), key=lambda i: items[i]["x"].shape[0])
-    saved = []
-    for start in range(0, len(order), batch_size):
-        idx = order[start: start + batch_size]
-        xs = [np.asarray(items[i]["x"]) for i in idx]
-        B = len(xs)
-        T_x = frame_bucket(max(x.shape[0] for x in xs), buckets=(32, 64, 128, 256, 512))
-        x = np.zeros((B, T_x) + xs[0].shape[1:], xs[0].dtype if xs[0].ndim == 1 else np.float32)
-        for j, xi in enumerate(xs):
-            x[j, : xi.shape[0]] = xi
-        x_lengths = torch.tensor([xi.shape[0] for xi in xs], dtype=torch.int32)
-        spk = None
-        if "spk" in items[idx[0]]:
-            spk = torch.as_tensor(np.stack([np.asarray(items[i]["spk"]) for i in idx]))
-        kw = dict(n_timesteps=n_timesteps, temperature=temperature, device=device, spk=spk,
-                  solver=solver, kernel_bf16=kernel_bf16)
-        if "durations" in items[idx[0]]:  # aligned-input models (v6)
-            dur = np.zeros((B, T_x), np.float32)
-            for j, i in enumerate(idx):
-                d = np.ceil(np.asarray(items[i]["durations"]))
-                dur[j, : len(d)] = d
-            pred = int(dur.sum(axis=1).max())
-            max_frames = frame_bucket(min(fix_len_compatibility(max(pred, 64)), max_frames_cap))
-            enc, dec, attn, y_len = synthesize(model, generator, x, x_lengths,
-                                               max_frames=max_frames, x_durations=dur, **kw)
-        else:  # one encoder pass sizes the batch's bucket and feeds the decoder
-            mu_x, logw, x_mask, pf = encode_text(model, x, x_lengths, spk, device)
-            pred = int(math.ceil(float(pf.max())))
-            max_frames = frame_bucket(min(fix_len_compatibility(max(pred, 64)), max_frames_cap))
-            enc, dec, attn, y_len = synthesize_from_encoding(
-                model, generator, mu_x, logw, x_mask, max_frames=max_frames, **kw)
-        for j, i in enumerate(idx):
-            saved.append(_save_artifact(save_dir / f"{_sample_id(dataset, i)}.npy", enc[j],
-                                        dec[j], attn[j], int(y_len[j]), is_artic))
+    returns their paths. The call is an `arttts.pipeline.acoustic` span
+    holding one `arttts.pipeline.batch` a batch, whose artifact writes are
+    its `arttts.pipeline.save`."""
+    with span("arttts.pipeline.acoustic"):
+        model = with_masked_norm(model)
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        is_artic = config.model.n_feats == 16
+        generator = torch.Generator(device=resolve(device)).manual_seed(seed)
+        items = [dataset[i] for i in range(len(dataset))]
+        order = sorted(range(len(items)), key=lambda i: items[i]["x"].shape[0])
+        saved = []
+        for start in range(0, len(order), batch_size):
+            with span("arttts.pipeline.batch"):
+                idx = order[start: start + batch_size]
+                xs = [np.asarray(items[i]["x"]) for i in idx]
+                B = len(xs)
+                T_x = frame_bucket(max(x.shape[0] for x in xs),
+                                   buckets=(32, 64, 128, 256, 512))
+                x = np.zeros((B, T_x) + xs[0].shape[1:],
+                             xs[0].dtype if xs[0].ndim == 1 else np.float32)
+                for j, xi in enumerate(xs):
+                    x[j, : xi.shape[0]] = xi
+                x_lengths = torch.tensor([xi.shape[0] for xi in xs], dtype=torch.int32)
+                spk = None
+                if "spk" in items[idx[0]]:
+                    spk = torch.as_tensor(np.stack([np.asarray(items[i]["spk"]) for i in idx]))
+                kw = dict(n_timesteps=n_timesteps, temperature=temperature, device=device,
+                          spk=spk, solver=solver, kernel_bf16=kernel_bf16)
+                if "durations" in items[idx[0]]:  # aligned-input models (v6)
+                    dur = np.zeros((B, T_x), np.float32)
+                    for j, i in enumerate(idx):
+                        d = np.ceil(np.asarray(items[i]["durations"]))
+                        dur[j, : len(d)] = d
+                    pred = int(dur.sum(axis=1).max())
+                    max_frames = frame_bucket(min(fix_len_compatibility(max(pred, 64)),
+                                                  max_frames_cap))
+                    enc, dec, attn, y_len = synthesize(model, generator, x, x_lengths,
+                                                       max_frames=max_frames, x_durations=dur,
+                                                       **kw)
+                else:  # one encoder pass sizes the batch's bucket and feeds the decoder
+                    mu_x, logw, x_mask, pf = encode_text(model, x, x_lengths, spk, device)
+                    pred = int(math.ceil(float(pf.max())))
+                    max_frames = frame_bucket(min(fix_len_compatibility(max(pred, 64)),
+                                                  max_frames_cap))
+                    enc, dec, attn, y_len = synthesize_from_encoding(
+                        model, generator, mu_x, logw, x_mask, max_frames=max_frames, **kw)
+                with span("arttts.pipeline.save"):
+                    for j, i in enumerate(idx):
+                        saved.append(_save_artifact(
+                            save_dir / f"{_sample_id(dataset, i)}.npy", enc[j], dec[j], attn[j],
+                            int(y_len[j]), is_artic))
     return saved
 
 
@@ -213,18 +225,25 @@ def run_mel_vocoder(vocoder, artifact_paths, save_dir: str, sample_rate: int = 2
     """Saved (161, T) mel artifacts -> wav through the `HiFiGANGenerator`
     `vocoder` on its fast path (vocoder_inference.py:137-141): fixed-shape
     windows of `vocode_chunked` over `hifigan_forward_fast` (K4, K5; K4 in
-    its bf16 mode with `kernel_bf16`). Returns the saved paths."""
+    its bf16 mode with `kernel_bf16`). An `arttts.pipeline.vocode` span
+    holds one `arttts.pipeline.track` a track, which holds its
+    `arttts.pipeline.load`, `arttts.vocode` and `arttts.pipeline.write`.
+    Returns the saved paths."""
     check_module(vocoder, device)
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     saved = []
-    for p in artifact_paths:
-        _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=80)
-        wav = vocode_chunked(lambda c: hifigan_forward_fast(vocoder, c, kernel_bf16),
-                             dec.astype(np.float32), device=device)
-        out = save_dir / (Path(p).stem + ".wav")
-        save_wav(out, wav, sample_rate)
-        saved.append(str(out))
+    with span("arttts.pipeline.vocode"):
+        for p in artifact_paths:
+            with span("arttts.pipeline.track"):
+                with span("arttts.pipeline.load"):
+                    _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=80)
+                wav = vocode_chunked(lambda c: hifigan_forward_fast(vocoder, c, kernel_bf16),
+                                     dec.astype(np.float32), device=device)
+                with span("arttts.pipeline.write"):
+                    out = save_dir / (Path(p).stem + ".wav")
+                    save_wav(out, wav, sample_rate)
+                saved.append(str(out))
     return saved
 
 
@@ -235,17 +254,22 @@ def run_sparc_vocoder(generator, artifact_paths, spk_ft: np.ndarray, save_dir: s
     """Saved (29, T) articulatory artifacts -> wav through the
     `SpkSparcHiFiGANGenerator` `generator` on its fast path
     (hifigan_inference_ms.py:91-141; K4 in its bf16 mode with
-    `kernel_bf16`). Returns the saved paths."""
+    `kernel_bf16`), in spans as `run_mel_vocoder`'s. Returns the saved
+    paths."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     saved = []
-    for p in artifact_paths:
-        _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=14)
-        dec = denormalize_sparc_features(dec, pitch_stats, loudness_stats)
-        # fixed-shape windows: one window shape serves every artifact length
-        wav = vocode_sparc(generator, dec.astype(np.float32), spk_ft, device=device,
-                           bf16=kernel_bf16)
-        out = save_dir / (Path(p).stem + ".wav")
-        save_wav(out, wav, sample_rate)
-        saved.append(str(out))
+    with span("arttts.pipeline.vocode"):
+        for p in artifact_paths:
+            with span("arttts.pipeline.track"):
+                with span("arttts.pipeline.load"):
+                    _, dec, _ = split_acoustic_artifact(np.load(p), n_feats=14)
+                    dec = denormalize_sparc_features(dec, pitch_stats, loudness_stats)
+                # fixed-shape windows: one window shape serves every artifact length
+                wav = vocode_sparc(generator, dec.astype(np.float32), spk_ft, device=device,
+                                   bf16=kernel_bf16)
+                with span("arttts.pipeline.write"):
+                    out = save_dir / (Path(p).stem + ".wav")
+                    save_wav(out, wav, sample_rate)
+                saved.append(str(out))
     return saved

@@ -33,6 +33,10 @@ vocoder) in the JAX kernels' bf16 mode, which the JAX package's TPU serving
 path takes by default for K1-K3: bf16 operands in every product, float32
 sums. It is a library argument, as `bf16` is in the JAX package; the
 port's default stays float32 and no CLI sets it.
+
+A request, an encoder pass, a decode (with its frames computed and kept),
+each score evaluation and a vocoder pass are spans (`utils/profiling.py`):
+seen in a profiler's trace while one records, a flag check otherwise.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from arttts_tpu_torch.models.hifigan import hifigan_forward_fast
 from arttts_tpu_torch.models.unet2d_fast import make_score_fn
 from arttts_tpu_torch.ops.shape import fix_len_compatibility, generate_path, sequence_mask
 from arttts_tpu_torch.parallel.mesh import Collectives, local_slice
+from arttts_tpu_torch.utils.profiling import span
 
 
 def _on(device, *tensors):
@@ -82,7 +87,8 @@ def reverse_diffusion(model, z, mask, mu, n_timesteps: int, stoc: bool = False, 
     for i in range(n_timesteps):
         t = torch.full((B,), 1.0 - (i + 0.5) * h, dtype=z.dtype, device=z.device)
         noise_t = get_noise(t[:, None, None], dec.beta_min, dec.beta_max)
-        score = score_fn(xt, mask, mu, t, spk)
+        with span("arttts.eval"):
+            score = score_fn(xt, mask, mu, t, spk)
         if stoc:
             dxt_det = (0.5 * (mu - xt) - score) * noise_t * h
             eps = torch.randn((B, T, z.shape[2]), generator=generator, dtype=z.dtype,
@@ -113,7 +119,9 @@ def reverse_diffusion_heun(model, z, mask, mu, n_timesteps: int, spk=None, score
     def drift(xt, t_scalar):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
         beta = get_noise(t[:, None, None], dec.beta_min, dec.beta_max)
-        return 0.5 * (mu - xt - score_fn(xt, mask, mu, t, spk)) * beta * h
+        with span("arttts.eval"):
+            score = score_fn(xt, mask, mu, t, spk)
+        return 0.5 * (mu - xt - score) * beta * h
 
     xt = z * mask
     for i in range(n_timesteps):
@@ -183,7 +191,8 @@ def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
 
     def score_x0(y, t_scalar, sig, alp):
         t = torch.full((B,), t_scalar, dtype=z.dtype, device=z.device)
-        s = score_fn((mu + y) * mask, mask, mu, t, spk)
+        with span("arttts.eval"):
+            s = score_fn((mu + y) * mask, mask, mu, t, spk)
         return (y + sig * sig * s) / alp
 
     y = (z - mu) * mask
@@ -198,15 +207,20 @@ def reverse_diffusion_dpm2m(model, z, mask, mu, n_timesteps: int, spk=None,
 
 
 @torch.inference_mode()
-def encode_text(model, x, x_lengths, spk=None, device="cuda"):
-    """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
-    (B,) the summed ceil of the predicted durations (picks the bucket; one
-    frame a token for a model without a duration predictor)."""
+def _encode(model, x, x_lengths, spk, device):
     x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
     mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
     w = torch.exp(logw) * x_mask
     return mu_x, logw, x_mask, torch.ceil(w).sum(dim=(1, 2))
+
+
+def encode_text(model, x, x_lengths, spk=None, device="cuda"):
+    """One encoder pass: (mu_x, logw, x_mask, pred_frames) with pred_frames
+    (B,) the summed ceil of the predicted durations (picks the bucket; one
+    frame a token for a model without a duration predictor)."""
+    with span("arttts.encode"):
+        return _encode(model, x, x_lengths, spk, device)
 
 
 @torch.inference_mode()
@@ -229,34 +243,39 @@ def synthesize_from_encoding(model, generator: torch.Generator, mu_x, logw, x_ma
     JAX package does). Returns (mu_y, dec, attn, y_lengths); mu_y and dec
     are (B, max_frames, n_feats), masked past y_lengths. With `mesh` (see
     the module note) `max_frames` must divide by its "model" axis."""
-    mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations, spk)
-    check_module(model, device)
-    if x_durations is not None:
-        w = x_durations[:, :, None] * x_mask
-    else:
-        w = torch.exp(logw) * x_mask
-    w_ceil = torch.ceil(w) * length_scale
-    y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
-    y_mask = sequence_mask(y_lengths, max_frames).to(x_mask.dtype)[:, :, None]
-    attn_mask = x_mask[:, :, 0:1] * y_mask[:, None, :, 0]
-    attn = generate_path(w_ceil[:, :, 0], attn_mask)  # (B, T_x, max_frames)
-    mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
-    noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype, device=mu_y.device)
-    z = mu_y + noise / temperature
-    kb = dict(kernel_bf16=kernel_bf16, mesh=mesh)
-    z_l, m_l, mu_l = z, y_mask, mu_y
-    if _shards(mesh) > 1:  # this rank's chunk of the frame axis
-        cut = local_slice(mesh, "model", max_frames)
-        z_l, m_l, mu_l = z[:, cut], y_mask[:, cut], mu_y[:, cut]
-    if solver == "heun":
-        dec = reverse_diffusion_heun(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
-    elif solver == "dpm":
-        dec = reverse_diffusion_dpm2m(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
-    else:
-        dec = reverse_diffusion(model, z_l, m_l, mu_l, n_timesteps, stoc, spk, generator, **kb)
-    if _shards(mesh) > 1:
-        dec = Collectives(mesh, "model").gather(dec, dim=1)
-    return mu_y * y_mask, dec * y_mask, attn, y_lengths
+    with span("arttts.decode", frames_computed=mu_x.shape[0] * max_frames) as s:
+        mu_x, logw, x_mask, x_durations, spk = _on(device, mu_x, logw, x_mask, x_durations,
+                                                   spk)
+        check_module(model, device)
+        if x_durations is not None:
+            w = x_durations[:, :, None] * x_mask
+        else:
+            w = torch.exp(logw) * x_mask
+        w_ceil = torch.ceil(w) * length_scale
+        y_lengths = torch.clamp(w_ceil.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
+        s.count(frames_kept=y_lengths)
+        y_mask = sequence_mask(y_lengths, max_frames).to(x_mask.dtype)[:, :, None]
+        attn_mask = x_mask[:, :, 0:1] * y_mask[:, None, :, 0]
+        attn = generate_path(w_ceil[:, :, 0], attn_mask)  # (B, T_x, max_frames)
+        mu_y = torch.einsum("bij,bic->bjc", attn, mu_x)
+        noise = torch.randn(mu_y.shape, generator=generator, dtype=mu_y.dtype,
+                            device=mu_y.device)
+        z = mu_y + noise / temperature
+        kb = dict(kernel_bf16=kernel_bf16, mesh=mesh)
+        z_l, m_l, mu_l = z, y_mask, mu_y
+        if _shards(mesh) > 1:  # this rank's chunk of the frame axis
+            cut = local_slice(mesh, "model", max_frames)
+            z_l, m_l, mu_l = z[:, cut], y_mask[:, cut], mu_y[:, cut]
+        if solver == "heun":
+            dec = reverse_diffusion_heun(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
+        elif solver == "dpm":
+            dec = reverse_diffusion_dpm2m(model, z_l, m_l, mu_l, n_timesteps, spk, **kb)
+        else:
+            dec = reverse_diffusion(model, z_l, m_l, mu_l, n_timesteps, stoc, spk, generator,
+                                    **kb)
+        if _shards(mesh) > 1:
+            dec = Collectives(mesh, "model").gather(dec, dim=1)
+        return mu_y * y_mask, dec * y_mask, attn, y_lengths
 
 
 @torch.inference_mode()
@@ -268,7 +287,8 @@ def synthesize(model, generator: torch.Generator, x, x_lengths, n_timesteps: int
     attn, y_lengths); `mesh` as `synthesize_from_encoding`."""
     x, x_lengths, spk = _on(device, x, x_lengths, spk)
     check_module(model, device)
-    mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
+    with span("arttts.encode"):
+        mu_x, logw, x_mask = model.encode(x, x_lengths, spk)
     return synthesize_from_encoding(
         model, generator, mu_x, logw, x_mask, n_timesteps, max_frames, temperature,
         stoc, length_scale, x_durations, device, spk=spk, solver=solver,
@@ -281,9 +301,10 @@ def vocode(vocoder, mel, device="cuda", kernel_bf16: bool = False):
     """(B, T, 80) -> (B, T*256, 1) on the fast path
     (`models/hifigan.py:hifigan_forward_fast`: MRF stages on K4, stride-2
     upsamples on K5), as the JAX package's `_vocode` runs off the CPU."""
-    (mel,) = _on(device, mel)
-    check_module(vocoder, device)
-    return hifigan_forward_fast(vocoder, mel, bf16=kernel_bf16)
+    with span("arttts.vocode"):
+        (mel,) = _on(device, mel)
+        check_module(vocoder, device)
+        return hifigan_forward_fast(vocoder, mel, bf16=kernel_bf16)
 
 
 @torch.inference_mode()
@@ -329,13 +350,17 @@ def serve_text_to_wav(model, vocoder, generator: torch.Generator, x, x_lengths,
                       solver: str = "euler", max_frames_cap: int = 2048, device="cuda",
                       kernel_bf16: bool = False):
     """The request path: encode once, pick the smallest bucket holding the
-    predicted length on the host, then decode and vocode.
+    predicted length on the host, then decode and vocode (the spans
+    `arttts.encode`, `arttts.decode`, `arttts.vocode` inside `arttts.request`).
     Returns (wav, y_lengths, bucket)."""
-    mu_x, logw, x_mask, pred = encode_text(model, x, x_lengths, spk, device)
-    pred_frames = int(math.ceil(float(pred.max())))
-    bucket = frame_bucket(min(fix_len_compatibility(max(pred_frames, 4)), max_frames_cap))
-    wav, y_lengths = synthesize_to_wav_from_encoding(
-        model, vocoder, generator, mu_x, logw, x_mask, n_timesteps, bucket, temperature,
-        device=device, spk=spk, solver=solver, kernel_bf16=kernel_bf16,
-    )
-    return wav, y_lengths, bucket
+    with span("arttts.request"):
+        with span("arttts.encode"):
+            mu_x, logw, x_mask, pred = _encode(model, x, x_lengths, spk, device)
+            pred_frames = int(math.ceil(float(pred.max())))
+            bucket = frame_bucket(min(fix_len_compatibility(max(pred_frames, 4)),
+                                      max_frames_cap))
+        wav, y_lengths = synthesize_to_wav_from_encoding(
+            model, vocoder, generator, mu_x, logw, x_mask, n_timesteps, bucket, temperature,
+            device=device, spk=spk, solver=solver, kernel_bf16=kernel_bf16,
+        )
+        return wav, y_lengths, bucket

@@ -50,6 +50,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from arttts_tpu_torch.parallel.tp import gathered, tensor_parallel
 from arttts_tpu_torch.train.losses import grad_tts_loss, loss_denominators
+from arttts_tpu_torch.utils.profiling import span
 
 # The reference clips only the encoder and decoder parameter groups; the
 # speaker modules (GradTTArtic's speaker encoding layer, the embedding table
@@ -139,30 +140,40 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
     and `grad_norm` (the norm of all gradients before the clip), as device
     scalars. `ddp` (`data_parallel(model, loss_fn, group)`): `batch` is this
     rank's rows of a global batch, and the step is the global batch's. A
-    model `shard_tp` sharded steps on its shards. The module note has both."""
-    model.train()
-    pinned = None
-    if "pinned_t" in batch:
-        pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
-    optimizer.zero_grad(set_to_none=True)
-    with gathered(model):
-        if ddp is None:
-            total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
-            total.backward()
-        else:
-            dens = loss_denominators(batch["x_lengths"], batch["y_lengths"], out_size,
-                                     model.config.n_feats)
-            dist.all_reduce(dens, group=ddp.process_group)
-            total, parts = ddp(batch, generator, out_size, pinned, dens)
-            (dist.get_world_size(ddp.process_group) * total).backward()
-            # this rank's shares of the global parts -> the global parts
-            names = list(parts)
-            shares = torch.stack([parts[k].detach() for k in names])
-            dist.all_reduce(shares, group=ddp.process_group)
-            parts = dict(zip(names, shares.unbind()))
-            total = shares.sum()
-    grad_norm = clip_gradients(model, grad_clip_norm)
-    optimizer.step()
+    model `shard_tp` sharded steps on its shards. The module note has both.
+    The step is an `arttts.train.step` span holding `arttts.train.loss`,
+    `arttts.train.backward`, `arttts.train.clip` and
+    `arttts.train.optimizer` (`utils/profiling.py:span`)."""
+    with span("arttts.train.step"):
+        model.train()
+        pinned = None
+        if "pinned_t" in batch:
+            pinned = (batch["pinned_t"], batch["pinned_z"], batch["pinned_offsets"])
+        optimizer.zero_grad(set_to_none=True)
+        with gathered(model):
+            if ddp is None:
+                with span("arttts.train.loss"):
+                    total, parts = _loss(loss_fn, model, generator, batch, out_size, pinned)
+                with span("arttts.train.backward"):
+                    total.backward()
+            else:
+                with span("arttts.train.loss"):
+                    dens = loss_denominators(batch["x_lengths"], batch["y_lengths"], out_size,
+                                             model.config.n_feats)
+                    dist.all_reduce(dens, group=ddp.process_group)
+                    total, parts = ddp(batch, generator, out_size, pinned, dens)
+                with span("arttts.train.backward"):
+                    (dist.get_world_size(ddp.process_group) * total).backward()
+                    # this rank's shares of the global parts -> the global parts
+                    names = list(parts)
+                    shares = torch.stack([parts[k].detach() for k in names])
+                    dist.all_reduce(shares, group=ddp.process_group)
+                    parts = dict(zip(names, shares.unbind()))
+                    total = shares.sum()
+        with span("arttts.train.clip"):
+            grad_norm = clip_gradients(model, grad_clip_norm)
+        with span("arttts.train.optimizer"):
+            optimizer.step()
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["total_loss"] = total.detach()
     metrics["grad_norm"] = grad_norm

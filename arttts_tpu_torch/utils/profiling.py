@@ -3,35 +3,74 @@
 
 The reference has no profiling at all (SURVEY.md §5.1). Here `trace`
 captures a Chrome trace of any code region (`*.trace.json.gz` under
-`log_dir`, which `utils/trace_analysis.py` reads), `annotate` names a
-region in it, and `StepTimer` logs step-time percentiles without a device
-sync on every step.
+`log_dir`, which `utils/trace_analysis.py` reads), and `span` names a
+region of the program in it.
+
+Spans. The program opens a span at each of its layer boundaries (the
+names are fixed, so that a trace can be read by them):
+
+- request: `arttts.request` (`infer/sampler.py:serve_text_to_wav`) holds
+  `arttts.encode` (the encoder pass and the host's bucket pick),
+  `arttts.decode` and `arttts.vocode`;
+- model step: `arttts.encode` (the encoder pass), `arttts.decode` (path,
+  noise and solver loop; counts `frames_computed`, B x the frame bucket,
+  and `frames_kept`, the summed output lengths),
+  `arttts.eval` (one score evaluation, whatever the solver or the score
+  network's route), `arttts.vocode` (a vocoder pass over a whole track);
+- pipeline: `arttts.pipeline.acoustic` holds one `arttts.pipeline.batch`
+  a batch, each holding its `arttts.decode` and `arttts.pipeline.save`
+  (the artifact writes); `arttts.pipeline.vocode` holds one
+  `arttts.pipeline.track` an artifact, each holding `arttts.pipeline.load`
+  (read and denormalise), `arttts.vocode` and `arttts.pipeline.write`;
+- trainer step: `arttts.train.step` holds `arttts.train.loss` (the forward
+  with the alignment), `arttts.train.backward`, `arttts.train.clip` and
+  `arttts.train.optimizer`, in that order.
+
+A span records only while a `torch.profiler` session records (`trace`, or
+any `torch.profiler.profile` the caller runs); otherwise it costs one check
+of the profiler's flag. While one records, a span enters
+`torch.profiler.record_function(name)`, so it shows in the Chrome trace as
+a `user_annotation` on the kernels' clock; the tree of spans, their times
+and the device's work inside them are read from that trace. A span that
+carries counts (`arttts.decode`) also keeps its name and counts in a
+bounded store in memory (`spans()`), which holds every such span recorded
+since the process started or the store was last emptied (`clear_spans()`,
+or entering `trace`). A count given as a tensor is kept as the tensor
+(recording never waits for the device) and summed to an int when the store
+is read.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
-import time
-from typing import Dict, List, Optional
+from typing import Deque, Dict, List
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
 
 log = logging.getLogger("arttts_tpu_torch.profiling")
+
+STORE_LIMIT = 1 << 17  # records kept; the oldest go first
+
+_recording = torch._C._autograd._profiler_enabled
+_store: Deque[dict] = collections.deque(maxlen=STORE_LIMIT)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture the enclosed region's host operations and, where a card is
     present, its device work, and write them as a gzipped Chrome trace
-    (`{worker}.{timestamp}.pt.trace.json.gz`) under `log_dir`. Yields the
-    `torch.profiler.profile`, whose `key_averages()` stay readable after:
+    (`{worker}.{timestamp}.pt.trace.json.gz`) under `log_dir`. Empties the
+    span store first, so that `spans()` after holds this region's spans.
+    Yields the `torch.profiler.profile`, whose `key_averages()` stay
+    readable after:
 
         with trace("/tmp/torch-trace"):
             train_step(...)
     """
+    clear_spans()
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -41,65 +80,71 @@ def trace(log_dir: str):
     log.info("profiler trace written to %s", log_dir)
 
 
-def annotate(name: str):
-    """Named region that shows up in profiler timelines."""
-    return record_function(name)
+class _Off:
+    """The span while no profiler records: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts):
+        pass
 
 
-def _cuda_device(result) -> Optional[torch.device]:
-    """The device of the first CUDA tensor in `result` (a tensor, or
-    lists, tuples and dicts of them), None when it holds none."""
-    if isinstance(result, torch.Tensor):
-        return result.device if result.is_cuda else None
-    if isinstance(result, dict):
-        result = list(result.values())
-    if isinstance(result, (list, tuple)):
-        for item in result:
-            device = _cuda_device(item)
-            if device is not None:
-                return device
-    return None
+_OFF = _Off()
 
 
-class StepTimer:
-    """Wall-clock step timing with periodic sync.
+class _Span:
+    __slots__ = ("name", "counts", "_annotation")
 
-    Most steps are timed dispatch-to-dispatch (free); every `sync_every`
-    steps the card that holds the result is synchronized, so the
-    measurement window closes on real device time. A result on the CPU is
-    never synchronized (its work is done when it returns). `syncs` counts
-    the synchronizations.
-    """
+    def __init__(self, name: str, counts: dict):
+        self.name, self.counts = name, counts
 
-    def __init__(self, sync_every: int = 50):
-        self.sync_every = sync_every
-        self.times: List[float] = []
-        self.syncs = 0
-        self._t0: Optional[float] = None
-        self._count = 0
+    def __enter__(self):
+        self._annotation = record_function(self.name)
+        self._annotation.__enter__()
+        return self
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    def __exit__(self, *exc):
+        self._annotation.__exit__(*exc)
+        if self.counts and exc[0] is None:
+            _store.append({"name": self.name, "counts": self.counts})
+        return False
 
-    def stop(self, result=None):
-        self._count += 1
-        if result is not None and self._count % self.sync_every == 0:
-            device = _cuda_device(result)
-            if device is not None:
-                torch.cuda.synchronize(device)
-                self.syncs += 1
-        if self._t0 is not None:
-            self.times.append(time.perf_counter() - self._t0)
-            self._t0 = None
+    def count(self, **counts):
+        """Add counts known only inside the span."""
+        self.counts.update(counts)
 
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times[1:] or self.times)  # drop the warm-up step
-        return {
-            "steps": len(arr),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-            "steps_per_s": float(1.0 / max(arr.mean(), 1e-12)),
-        }
+
+def span(name: str, **counts):
+    """A named region of the program (a context manager): recorded as
+    the module note says while a profiler records, nothing otherwise.
+    `counts` (ints or tensors) are kept with it; `count(**more)` on the
+    entered span adds more."""
+    if not _recording():
+        return _OFF
+    return _Span(name, counts)
+
+
+def _plain(value):
+    if isinstance(value, torch.Tensor):
+        return int(value.sum().item())
+    return value
+
+
+def spans() -> List[Dict]:
+    """The stored spans (those that carry counts) in the order they
+    closed, as plain records (`name`, `counts`; tensor counts summed to
+    ints)."""
+    return [{"name": rec["name"], "counts": {k: _plain(v) for k, v in rec["counts"].items()}}
+            for rec in list(_store)]
+
+
+def clear_spans():
+    """Empty the span store."""
+    _store.clear()
+

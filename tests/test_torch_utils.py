@@ -1,7 +1,7 @@
 """Parity of the port's utilities with the JAX package's, on the CPU:
 `voxcommunis/data.py:PhoneticFeatureDataset` and `LANGUAGES`,
-`core/config.py:MSML1H_LANG_CODES`, `utils/profiling.py` (`StepTimer`,
-`trace`), `utils/trace_analysis.py` over `torch.profiler` Chrome traces,
+`core/config.py:MSML1H_LANG_CODES`, `utils/profiling.py` (`trace`,
+`span`), `utils/trace_analysis.py` over `torch.profiler` Chrome traces,
 `utils/plotting.py`, and the trainer's sample images.
 """
 
@@ -17,7 +17,6 @@ import torch
 
 from arttts_tpu.core import config as jconfig
 from arttts_tpu.utils import plotting as jplot
-from arttts_tpu.utils import profiling as jprof
 from arttts_tpu.utils import trace_analysis as jtrace
 from arttts_tpu.voxcommunis import data as jdata
 from arttts_tpu.voxcommunis import decoder as jdec
@@ -75,49 +74,6 @@ def test_languages_and_msml1h_codes():
     assert pconfig.MSML1H_LANG_CODES == jconfig.MSML1H_LANG_CODES
     assert set(pconfig.MSML1H_LANG_CODES) <= set(pvox.LANGUAGES)
     assert set(pconfig.MSML1H_EXCLUDE_LANGS) <= set(pconfig.MSML1H_LANG_CODES)
-
-
-class OnCard(torch.Tensor):
-    """A CPU tensor that reports a CUDA device."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
-
-
-def test_step_timer(monkeypatch):
-    """The same summary as the JAX `StepTimer` on the same step times (the
-    first dropped), and a sync only every `sync_every` steps, only for a
-    result on the card."""
-    times = [3.0, 0.5, 0.25, 0.75, 0.5, 1.5, 0.25]
-    p, j = pprof.StepTimer(), jprof.StepTimer()
-    assert p.summary() == j.summary() == {}
-    p.times, j.times = list(times), list(times)
-    assert p.summary() == j.summary()
-    assert p.summary()["steps"] == 6 and p.summary()["p50_s"] == 0.5
-    p.times = j.times = [2.0]
-    assert p.summary() == j.summary()
-
-    synced = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: synced.append(device))
-    timer = pprof.StepTimer(sync_every=3)
-    for _ in range(7):
-        timer.start()
-        timer.stop({"loss": torch.zeros(2)})
-    assert timer.syncs == 0 and synced == [] and len(timer.times) == 7
-    card = torch.zeros(2).as_subclass(OnCard)
-    for result in (card, [torch.zeros(1), {"y": card}], (None, card)):
-        timer = pprof.StepTimer(sync_every=3)
-        for _ in range(7):
-            timer.start()
-            timer.stop(result)
-        timer.stop()  # no result: no sync
-        assert timer.syncs == 2 and len(timer.times) == 7
-    assert synced == [torch.device("cuda", 0)] * 6
 
 
 def _write_trace(root, events, name="host_1.1000.pt.trace.json.gz"):
@@ -228,7 +184,7 @@ def test_cpu_trace_writes_a_chrome_trace(tmp_path):
     and has no device events; the profiler it yields keeps its tables."""
     x = torch.randn(32, 32)
     with pprof.trace(str(tmp_path / "prof")) as prof:
-        with pprof.annotate("port_region"):
+        with pprof.span("port_region"):
             (x @ x).sum()
     files = list((tmp_path / "prof").glob("*.pt.trace.json.gz"))
     assert len(files) == 1
