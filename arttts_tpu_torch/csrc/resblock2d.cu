@@ -26,15 +26,12 @@
 // U-Net. The GroupNorm and attention-core kernels below them are bytes
 // and latency.
 //
-// Design of the products (`igemm_body`, shared by `conv3x3_kernel` and
-// `conv1x1_kernel`): an implicit GEMM with M = Cout, N = output pixels of a
-// tile of R rows x 32 frames, K = KS*KS*Cin, in 3xTF32 on `mma.sync.m16n8k8`
-// with float32 accumulation (tf32_mma.cuh). The same GEMM on Hopper's
-// `wgmma` (scripts/conv_wgmma_route.cu) is faster where its large tile
-// fills the card, but its registers allow one block an SM, so the tiles
-// that fill the card at 20x192 run two waves, and it is slower over a score
-// evaluation (scripts/resblock2d_variants.py times both). What the design
-// does about the faults of the CUDA-core version it replaced:
+// The products take one of two routes. Route 1, `igemm_body` (the 1x1
+// products, the bf16 mode, and the 3x3 products the caller does not send to
+// route 2): an implicit GEMM with M = Cout, N = output pixels of a tile of R
+// rows x 32 frames, K = KS*KS*Cin, in 3xTF32 on `mma.sync.m16n8k8` with
+// float32 accumulation (tf32_mma.cuh). What its design does about the faults
+// of the CUDA-core version it replaced:
 // 1. Tensor cores instead of float32 FMAs: each warp computes a 32-channel x
 //    32-pixel tile (2 m16 x 4 n8), so one k8 step splits 8 weights and 8
 //    window values for 24 `mma`s.
@@ -57,6 +54,44 @@
 // 5. Bank conflicts: weight rows are padded to a pitch of 4 x odd words and
 //    window channels to 8 mod 32 words, so the A and B fragments' 32 lanes
 //    hit 32 banks.
+// Its fault: every warp splits its fragments again at every tap (a window
+// value once for each of the 9 taps and each warp row that reads it), and
+// the split and the fragment loads, not the tensor cores, set its pace.
+//
+// Route 2, `wgmma_body` (`conv3x3_wgmma`; the float32 3x3 products whose
+// input channels fill 8-channel chunks, at shapes where one of its tiles
+// gives every SM a block: ops/resblock2d.py:conv3x3_route): the same GEMM
+// on Hopper's warpgroup product `wgmma.m64n64k8` in 3xTF32 with both
+// operands read from shared memory, each split exactly once:
+// 1. A block is 64 channels x 4 or 2 rows x 64 frames. Two consumer
+//    warpgroups issue only `wgmma`s (an m64n64 accumulator a row, 32
+//    registers a thread); two producer warpgroups copy and split.
+// 2. A chunk (8 input channels, all 9 taps) lands by `cp.async`: the weights
+//    in 16-byte pieces as they lie in device memory, the window in 4-byte
+//    copies with zero fill as in route 1, as [channel quad][pixel][4
+//    channels] so that a tap's shift is a shift of the B descriptor's start.
+//    The producers then split it once into TF32 high and low planes in
+//    shared memory (truncating split: a window value as landed is its own
+//    high part), transposing the weights into the A layout [tap][channel
+//    quad][channel][4] on the way with 16-byte stores. Each tap and row is
+//    then three `wgmma`s, lo.hi, hi.lo, hi.hi, into one accumulator.
+// 3. A ring of 3 or 4 stages with `mbarrier`s (`ready`: split by every
+//    producer; `empty`: both consumers' products done): the producers keep
+//    copies kStages - 2 chunks ahead of the chunk they split, the consumers
+//    two chunks' products in flight; no block-wide barrier in the loop.
+// 4. What bounds it: shared memory. A stage holds both planes of both
+//    operands (56-64 KB), so one block fits an SM and the smaller tile runs
+//    in two waves where it has more blocks than SMs; the `wgmma`s' operand
+//    reads (4 KB a product) and the producers' copies and split share the
+//    SM's shared-memory bandwidth and add up rather than overlap. A chunk's
+//    weights serve only the block's rows, so a one-row tile (the only one
+//    that gives every SM a block at 20 x 192, C = 256) spends as long
+//    splitting weights as multiplying, and lost to route 1: the caller
+//    keeps such shapes on route 1 (scripts/resblock2d_variants.py times
+//    both routes and their parts).
+// Both routes' kernels are `conv3x3_kernel` templates: a profile files them
+// under one name.
+//
 // GroupNorm needs statistics over the whole image before any element can be
 // normalised: the 3x3 epilogue adds the bias, stores the raw output and
 // writes one (sum, sum of squares) partial per tile and 8-channel slot, and
@@ -92,7 +127,13 @@ using arttts::cp_async16;
 using arttts::cp_async4;
 using arttts::cp_async_commit;
 using arttts::cp_async_wait;
+using arttts::fence_acc;
+using arttts::fence_proxy_async;
 using arttts::kThreads;
+using arttts::mbar_arrive;
+using arttts::mbar_init;
+using arttts::mbar_init_fence;
+using arttts::mbar_wait;
 using arttts::mish;
 using arttts::mma3;
 using arttts::mma_bf16;
@@ -101,6 +142,11 @@ using arttts::round_bf16;
 using arttts::set_smem;
 using arttts::sm_count;
 using arttts::split_tf32;
+using arttts::wgmma_commit;
+using arttts::wgmma_desc;
+using arttts::wgmma_fence;
+using arttts::wgmma_m64n64k8;
+using arttts::wgmma_wait;
 
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 2;
@@ -465,6 +511,370 @@ int launch_conv(const ConvArgs& a, int B, void* stream) {
   return launch_tile<KS, 1, 2, 4, BF16>(a, B, s);
 }
 
+// ---- the float32 3x3 product on `wgmma` (route 2 of the note above) -------
+// A block: 64 output channels x 2 RPW rows x 64 frames, four warpgroups.
+// Warpgroups 0 and 1 compute (consumers): warpgroup wg rows RPW wg..+RPW-1,
+// one m64n64 accumulator a row. Warpgroups 2 and 3 (producers) copy and
+// split the chunks.
+constexpr int kWThreads = 512;
+constexpr int kWHalf = kWThreads / 2;  // consumer threads; as many producers
+constexpr int kWCols = 64;             // output frames of a tile row: a product's n
+constexpr int kWWinCols = kWCols + 2;  // the window's columns
+constexpr int kWCi = 8;  // input channels of a staged chunk: one k8 step a tap
+// A plane (a chunk's weights, high or low parts): tap-major, each tap
+// [channel quad][64 output channels][4 channels] (core matrices 8 channels x
+// 16 bytes, 128 bytes apart along m, 1 KB along k). A chunk's weights land
+// in the low plane first, as they lie in device memory, 72 floats a channel
+// at a pitch of 76 (the split's gathers of one tap and channel quad then hit
+// 32 banks).
+constexpr int kTapStride = 2 * 64 * 4;
+constexpr int kRawPitch = 76;
+constexpr int kAPlane = 64 * kRawPitch;
+constexpr int kPieces = 64 * kWCi * 9 / 4;  // 16-byte pieces of a chunk's weights
+static_assert(9 * kTapStride <= kAPlane, "the taps fit in a plane");
+static_assert(kPieces > 4 * kWHalf && kPieces <= 5 * kWHalf, "five rounds of pieces");
+
+// the producers' own barrier (named barrier 1; the consumers never wait on it)
+__device__ __forceinline__ void producers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWHalf) : "memory");
+}
+
+template <int RPW>
+struct WgmmaTile {
+  static constexpr int kRows = 2 * RPW;  // output rows of a tile
+  static constexpr int kWinRows = kRows + 2;
+  // B plane: [channel quad][window pixel][4 channels] (K-major: a tap's
+  // shift is a shift of the start by 16-byte pixels)
+  static constexpr int kQuad = 4 * kWinRows * kWWinCols;
+  static constexpr int kBPlane = 2 * kQuad;
+  static constexpr int kUnits = 2 * kWinRows;  // (channel quad, window row) copy units
+  // a stage: A high, A low, B as landed (its high parts), B low
+  static constexpr int kStage = 2 * kAPlane + 2 * kBPlane;
+  // as many stages as leave room for one block an SM (3 or 4)
+  static constexpr int kStages = 4 * 4 * kStage <= 232448 - 1024 ? 4 : 3;
+  static constexpr int kSmemBytes = 4 * kStages * kStage;
+  static_assert(kAPlane % 4 == 0 && kQuad % 4 == 0 && kStage % 4 == 0, "16-byte starts");
+  static_assert(kSmemBytes <= 232448 - 1024, "one block an SM");
+  static_assert(kUnits <= 16, "two copy units a producer warp");
+};
+
+// The split (the truncating one of csrc/mrf.cu): hi = v with its low 13 bits
+// cleared and lo = v - hi exactly, which the tensor core reads truncated to
+// TF32. A window value as landed is its own high part: the tensor core reads
+// a TF32 operand's top 19 bits.
+__device__ __forceinline__ float trunc_tf32(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xFFFFE000u);
+}
+
+template <int RPW>
+__device__ __forceinline__ void wgmma_body(const ConvArgs& a) {
+  using Tl = WgmmaTile<RPW>;
+  constexpr int kStages = Tl::kStages;
+  extern __shared__ __align__(128) float ring[];
+  float* smem = ring;
+  __shared__ __align__(8) uint64_t ready[kStages], empty[kStages];
+  __shared__ float stats_s[2][8][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, t = lane & 3;
+  const bool consumer = tid < kWHalf;
+  const int pw = warp & 7;  // a producer's warp among the producers
+  const int H = a.H, T = a.T;
+  const int tiles_t = ceil_div(T, kWCols);
+  const int h0 = (blockIdx.x / tiles_t) * Tl::kRows;
+  const int t0 = (blockIdx.x % tiles_t) * kWCols;
+  const int co0 = blockIdx.y * 64;
+  const int b = blockIdx.z;
+  const int len = a.lengths != nullptr ? min(a.lengths[b], T) : T;
+  const int Cin = a.c0 + a.c1;
+  const size_t plane = (size_t)H * T;
+  const float* xb0 = a.x0 + (size_t)b * a.c0 * plane;
+  const float* xb1 = a.c1 > 0 ? a.x1 + (size_t)b * a.c1 * plane : a.x0;
+  const int w_row = Cin * 9;  // weights of one output channel
+
+  // A chunk lands by copies (zero fill for the halo, the sequence edges and
+  // frames t >= lengths[b]; the route takes whole chunks of channels).
+  // Weights: the chunk's 64 rows of 72 floats (one contiguous run each in
+  // device memory) land as 1,152 16-byte pieces, producer p taking pieces
+  // p + 256 k. The split then has producer warp w hold output channels
+  // 8w..8w+7, lane l channel 8w + l % 8 and the (tap, channel quad) pairs
+  // l / 8 + 4 i: it gathers a pair's 4 channels from the landed row and
+  // writes their high and low parts as one 16-byte store each.
+  const int ptid = tid - kWHalf;
+  int a_src[5], a_dst[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int piece = ptid + kWHalf * k, co = piece / 18, m = piece % 18;
+    a_src[k] = co * w_row + 4 * m;
+    a_dst[k] = co * kRawPitch + 4 * m;
+  }
+  const float* wb = a.w + (size_t)co0 * w_row;
+  const int s_co = 8 * pw + (lane & 7), s_part = lane >> 3;
+  // Window: unit u = (channel quad u / kWinRows, window row u % kWinRows);
+  // producer warp w takes units w and w + 8, lane l channel l % 4 of the quad at
+  // window columns l / 4 + 8 m (m = 0..8, the last for l < 8)
+  auto unit_base = [&](int u) {  // this lane's first element of unit u in a B plane
+    return (u / Tl::kWinRows) * Tl::kQuad + (u % Tl::kWinRows) * 4 * kWWinCols + lane;
+  };
+  auto unit_row = [&](int ci0, int u) -> const float* {  // its input row; null: zeros
+    const int ci = ci0 + 4 * (u / Tl::kWinRows) + (lane & 3);
+    const int row = h0 - 1 + u % Tl::kWinRows;
+    if (ci >= Cin || row < 0 || row >= H) return nullptr;
+    const float* src = ci < a.c0 ? xb0 + (size_t)ci * plane : xb1 + (size_t)(ci - a.c0) * plane;
+    return src + (size_t)row * T;
+  };
+  const int col0 = t0 - 1 + (lane >> 2);
+
+  auto load = [&](int chunk, int s) {
+    float* As = smem + s * Tl::kStage;
+    float* Bs = As + 2 * kAPlane;
+    const int ci0 = chunk * kWCi;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if (k < 4 || ptid < kPieces - 4 * kWHalf)
+        cp_async16(As + kAPlane + a_dst[k], wb + ci0 * 9 + a_src[k]);
+    }
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = pw + 8 * uu;
+      if (u < Tl::kUnits) {
+        const int base = unit_base(u);
+        const float* row = unit_row(ci0, u);
+#pragma unroll
+        for (int m = 0; m < 9; ++m) {
+          if (m < 8 || lane < 8) {
+            const int col = col0 + 8 * m;
+            const bool ok = row != nullptr && col >= 0 && col < len;
+            cp_async4(Bs + base + 32 * m, ok ? row + col : a.x0, ok);
+          }
+        }
+      }
+    }
+  };
+  auto split = [&](int s) {
+    float* As = smem + s * Tl::kStage;
+    float* Bs = As + 2 * kAPlane;
+    producers_sync();  // every producer's pieces have landed
+    float v[5][4];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int pair = s_part + 4 * i, tap = pair % 9, q = pair / 9;
+      if (pair < 18) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][e] = As[kAPlane + s_co * kRawPitch + (4 * q + e) * 9 + tap];
+      }
+    }
+    producers_sync();  // every piece is read before any is overwritten
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int pair = s_part + 4 * i, tap = pair % 9, q = pair / 9;
+      if (pair < 18) {
+        float4 hi, lo;
+        hi.x = trunc_tf32(v[i][0]), hi.y = trunc_tf32(v[i][1]);
+        hi.z = trunc_tf32(v[i][2]), hi.w = trunc_tf32(v[i][3]);
+        lo = make_float4(v[i][0] - hi.x, v[i][1] - hi.y, v[i][2] - hi.z, v[i][3] - hi.w);
+        const int o = tap * kTapStride + q * 256 + s_co * 4;
+        *reinterpret_cast<float4*>(As + o) = hi;
+        *reinterpret_cast<float4*>(As + kAPlane + o) = lo;
+      }
+    }
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = pw + 8 * uu;
+      if (u < Tl::kUnits) {
+        const int base = unit_base(u);
+#pragma unroll
+        for (int m = 0; m < 9; ++m) {
+          if (m < 8 || lane < 8) {
+            const float x = Bs[base + 32 * m];
+            Bs[Tl::kBPlane + base + 32 * m] = x - trunc_tf32(x);
+          }
+        }
+      }
+    }
+  };
+
+  float acc[RPW][32];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) acc[r][v] = 0.f;
+
+  // this warpgroup's first output row in the tile
+  const int r0 = wg * RPW;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ready[s], kWHalf);
+      mbar_init(&empty[s], kWHalf);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The ring. `ready[s]`: the chunk in stage s is split (all producers);
+  // `empty[s]`: both consumer warpgroups' products on it are done, so it may
+  // be refilled. Producers keep kStages - 2 chunks of copies in flight ahead
+  // of the one they split; consumers keep two chunks' products in flight.
+  const int n_chunks = ceil_div(Cin, kWCi);
+  if (!consumer) {
+    constexpr int kAhead = kStages - 2;
+    for (int c = 0; c < n_chunks + kAhead; ++c) {
+      if (c < n_chunks) {
+        if (c >= kStages) mbar_wait(&empty[c % kStages], (c / kStages - 1) & 1);
+        load(c, c % kStages);
+      }
+      cp_async_commit();
+      const int cs = c - kAhead;  // the chunk to split now
+      if (cs >= 0) {
+        cp_async_wait<kAhead>();  // this thread's copies of chunk cs have landed
+        split(cs % kStages);
+        fence_proxy_async();
+        mbar_arrive(&ready[cs % kStages]);
+      }
+    }
+    cp_async_wait<0>();
+  } else {
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % kStages;
+      mbar_wait(&ready[s], (c / kStages) & 1);
+      __syncwarp();  // converged for the warpgroup's `.sync.aligned` instructions
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) fence_acc(acc[r]);
+      wgmma_fence();
+      {  // chunk c's products: per tap, A descriptors of the tap (core matrices
+         // 128 bytes apart along m, 1 KB along k) and B descriptors of the
+         // window shifted to the tap (128 bytes along n, a quad's plane along k)
+        const uint32_t As = arttts::smem_addr(smem + s * Tl::kStage);
+        const uint32_t Bs = As + 4 * 2 * kAPlane;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const uint32_t ah = As + 4 * tap * kTapStride;
+          const uint64_t dah = wgmma_desc(ah, 1024, 128);
+          const uint64_t dal = wgmma_desc(ah + 4 * kAPlane, 1024, 128);
+#pragma unroll
+          for (int r = 0; r < RPW; ++r) {
+            const uint32_t bh = Bs + 16 * ((r0 + r + tap / 3) * kWWinCols + tap % 3);
+            const uint64_t dbh = wgmma_desc(bh, 4 * Tl::kQuad, 128);
+            const uint64_t dbl = wgmma_desc(bh + 4 * Tl::kBPlane, 4 * Tl::kQuad, 128);
+            wgmma_m64n64k8(acc[r], dal, dbh);  // the small terms first
+            wgmma_m64n64k8(acc[r], dah, dbl);
+            wgmma_m64n64k8(acc[r], dah, dbh);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // this warpgroup's products on chunk c-1 are done
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) fence_acc(acc[r]);
+      if (c > 0) mbar_arrive(&empty[(c - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) fence_acc(acc[r]);
+  }
+  __syncthreads();  // the ring is free
+
+  // epilogue: bias, the raw store, and this lane's share of the GroupNorm
+  // partials of its warp's two 8-channel slots
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+  if (consumer) {
+    const bool vec = !(T & 1);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int row = h0 + r0 + r;
+      if (row >= H) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + 16 * w4 + 8 * h + g;
+        const float bv = a.bias != nullptr ? a.bias[co] : 0.f;
+        const size_t o = ((size_t)(b * a.Cout + co) * H + row) * T;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = t0 + 8 * j + 2 * t;
+          if (col >= T) continue;
+          const bool two = col + 1 < T;
+          const float v0 = acc[r][4 * j + 2 * h] + bv, v1 = acc[r][4 * j + 2 * h + 1] + bv;
+          float* p = a.out + o + col;
+          if (vec && two) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (two) p[1] = v1;
+          }
+          if (!a.masked_stats || col < len) {
+            s1[h] += v0;
+            s2[h] += v0 * v0;
+          }
+          if (two && (!a.masked_stats || col + 1 < len)) {
+            s1[h] += v1;
+            s2[h] += v1 * v1;
+          }
+        }
+      }
+    }
+  }
+  if (a.partial == nullptr) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], m);
+      s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], m);
+    }
+    if (consumer && lane == 0) {
+      stats_s[wg][2 * w4 + h][0] = s1[h];
+      stats_s[wg][2 * w4 + h][1] = s2[h];
+    }
+  }
+  __syncthreads();
+  if (tid < 8) {  // one partial per 8-channel slot and tile: the warpgroups in order
+    float* dst =
+        a.partial + (((size_t)b * (a.Cout / 8) + co0 / 8 + tid) * gridDim.x + blockIdx.x) * 2;
+    dst[0] = stats_s[0][tid][0] + stats_s[1][tid][0];
+    dst[1] = stats_s[0][tid][1] + stats_s[1][tid][1];
+  }
+}
+
+// Another template of the same name as the `mma.sync` body's: a profile
+// files both under `conv3x3_kernel`.
+template <int RPW>
+__global__ void __launch_bounds__(kWThreads, 1)
+    conv3x3_kernel(const ConvArgs a, WgmmaTile<RPW>) {
+  wgmma_body<RPW>(a);
+}
+
+// Blocks of the route's launch with tiles of `rows` rows.
+int wgmma_tile_blocks(int rows, int B, int Cout, int H, int T) {
+  return ceil_div(H, rows) * ceil_div(T, kWCols) * (Cout / 64) * B;
+}
+
+template <int RPW>
+int wgmma_info(int* out) {
+  using Tl = WgmmaTile<RPW>;
+  void (*kernel)(const ConvArgs, WgmmaTile<RPW>) = conv3x3_kernel<RPW>;
+  static const int attr = set_smem(kernel, Tl::kSmemBytes);
+  if (attr) return attr;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kWThreads,
+                                                      Tl::kSmemBytes);
+  out[0] = e == cudaSuccess ? fa.numRegs : 0;
+  out[2] = Tl::kSmemBytes;
+  return (int)e;
+}
+
+template <int RPW>
+int launch_wgmma(const ConvArgs& a, int B, cudaStream_t stream) {
+  using Tl = WgmmaTile<RPW>;
+  void (*kernel)(const ConvArgs, WgmmaTile<RPW>) = conv3x3_kernel<RPW>;
+  static const int attr = set_smem(kernel, Tl::kSmemBytes);
+  if (attr) return attr;
+  const dim3 grid(ceil_div(a.H, Tl::kRows) * ceil_div(a.T, kWCols), a.Cout / 64, B);
+  kernel<<<grid, kWThreads, Tl::kSmemBytes, stream>>>(a, WgmmaTile<RPW>{});
+  ARTTTS_CHECK_LAUNCH();
+  return 0;
+}
+
 // Per (group, batch): reduce the conv's partials in a fixed order (double
 // precision) into the mean and 1/sqrt(var + eps). Grid: (8, B).
 __global__ void __launch_bounds__(kThreads)
@@ -704,14 +1114,18 @@ int attention(const float* qkv, float* kpart, float* cpart, float* ctx, float* a
 // ---------------------------------------------------------------------------
 
 // Pixel tiles (grid x) of a product launch at this shape, or minus a CUDA
-// error code: the GroupNorm partials hold one entry per tile.
-extern "C" int conv_tiles(int B, int Cout, int H, int T) {
+// error code: the GroupNorm partials hold one entry per tile. `rows`: 0 for
+// the `mma.sync` body (`conv3x3`, `conv1x1`: its own pick of tile), else the
+// rows of the `wgmma` route's tile (`conv3x3_wgmma`).
+extern "C" int conv_tiles(int B, int Cout, int H, int T, int rows) {
+  if (rows > 0) return ceil_div(H, rows) * ceil_div(T, kWCols);
   const int cfg = pick_tile(B, Cout, H, T);
   return cfg < 0 ? cfg : ceil_div(H, kTileShapes[cfg][1]) * ceil_div(T, kCols);
 }
 
 // Blocks of a product launch at this shape, or minus a CUDA error code.
-extern "C" int conv_blocks(int B, int Cout, int H, int T) {
+extern "C" int conv_blocks(int B, int Cout, int H, int T, int rows) {
+  if (rows > 0) return wgmma_tile_blocks(rows, B, Cout, H, T);
   const int cfg = pick_tile(B, Cout, H, T);
   return cfg < 0 ? cfg : tile_blocks(cfg, B, Cout, H, T);
 }
@@ -725,6 +1139,33 @@ extern "C" int conv3x3(const float* x0, int c0, const float* x1, int c1, const i
   const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, nullptr, nullptr, out, partial,
                    H, T, Cout, masked_stats};
   return launch_conv<3, false>(a, B, stream);
+}
+
+// The same product on the `wgmma` route, with tiles of `rows` (4 or 2)
+// output rows x 64 frames x 64 channels; the partials are (B, Cout / 8,
+// conv_tiles(..., rows), 2). The caller picks `rows`
+// (ops/resblock2d.py:conv3x3_route).
+extern "C" int conv3x3_wgmma(const float* x0, int c0, const float* x1, int c1,
+                             const int* lengths, const float* w, const float* bias, float* out,
+                             float* partial, int B, int H, int T, int Cout, int masked_stats,
+                             int rows, void* stream) {
+  if (Cout % 64 || (c0 + c1) % kWCi || c0 < 1 || c1 < 0 || H < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
+  const ConvArgs a{x0, x1, c0, c1, lengths, w, bias, nullptr, nullptr, out, partial,
+                   H, T, Cout, masked_stats};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rows == 4) return launch_wgmma<2>(a, B, s);
+  if (rows == 2) return launch_wgmma<1>(a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the runtime makes of the `wgmma` route's kernel with tiles of `rows`
+// rows: out[0] registers a thread, out[1] blocks an SM, out[2] bytes of
+// dynamic shared memory a block. Returns a CUDA error code.
+extern "C" int conv_wgmma_info(int rows, int* out) {
+  if (rows == 4) return wgmma_info<2>(out);
+  if (rows == 2) return wgmma_info<1>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same in the bf16 mode: operands rounded to bf16, float32 sums.

@@ -45,8 +45,10 @@ SIGNATURES = {
     "resblock2d": {
         "conv3x3": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "conv1x1": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "conv_tiles": (_I, _I, _I, _I),
-        "conv_blocks": (_I, _I, _I, _I),
+        "conv3x3_wgmma": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "conv_tiles": (_I, _I, _I, _I, _I),
+        "conv_blocks": (_I, _I, _I, _I, _I),
+        "conv_wgmma_info": (_I, _P),
         "gn_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "gn_act": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
         "attn_chunks": (_I,),

@@ -23,6 +23,9 @@ note at the top of `csrc/resblock2d.cu`. Its 3x3 and 1x1 products
 (`conv3x3`, `conv1x1`) are implicit GEMMs on the tensor cores in 3xTF32
 (float32 accuracy from three TF32 passes), bound by the tensor cores' rate;
 the launcher picks per shape the largest tile that gives every SM a block.
+A float32 3x3 product takes one of two routes, by its shape alone
+(`conv3x3_route`): Hopper's warpgroup `wgmma` (`conv3x3_wgmma`) where its
+64-frame tiles still give every SM a block, else the `mma.sync` body.
 GroupNorm's image-wide statistics are per-tile partial sums from the 3x3
 epilogue, reduced in a second, fixed-order pass (no atomics, so a call
 gives the same bits every run); normalisation, mish, the time embedding and
@@ -43,6 +46,7 @@ for tensors on a CUDA device; anything else raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -220,6 +224,33 @@ def block_with_products(xs, lengths, temb, w, *, masked_stats, eps, attn=None,
 resblock2d_plain.cuda_calls = 0
 
 
+WGMMA_ROWS = (4, 2)  # the `wgmma` route's tiles, largest first: rows x 64 frames x 64 channels
+WGMMA_COLS = 64
+WGMMA_CI = 8  # input channels of the route's staged chunk
+
+
+def conv3x3_route(B: int, c_in: int, c_out: int, H: int, T: int, bf16: bool, sms: int) -> int:
+    """Which body runs one 3x3 product of K1: the rows of the `wgmma`
+    route's tile, or 0 for the `mma.sync` body. The route takes float32
+    products whose input channels fill its 8-channel chunks, with the first
+    of its tiles that gives each of the card's `sms` SMs a block; the first
+    block's 2 or 3 input planes, the bf16 mode and any shape that no tile of
+    the route fills the card with stay on the `mma.sync` body (whose smaller
+    tiles do)."""
+    if bf16 or c_in % WGMMA_CI:
+        return 0
+    for rows in WGMMA_ROWS:
+        if -(-H // rows) * -(-T // WGMMA_COLS) * (c_out // 64) * B >= sms:
+            return rows
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    """SMs of CUDA device `index` (a CUDA tensor's device always has one)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_operand(t: torch.Tensor, shape, device, what: str, dtype=torch.float32) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
     if (t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != tuple(shape)
@@ -260,6 +291,7 @@ def resblock2d(
 
 resblock2d.launches = 0
 resblock2d.bf16_launches = 0  # the launches among them in the bf16 mode
+resblock2d.wgmma_launches = 0  # ... and those with a 3x3 product on the `wgmma` route
 
 
 def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn, bf16=False):
@@ -304,23 +336,31 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn, bf16=Fa
     s = _build.stream(xs[0])
     x0, x1 = xs[0], (xs[1] if len(xs) > 1 else None)
     c1 = cs[1] if len(xs) > 1 else 0
-    n_tiles = lib.conv_tiles(B, c_out, H, T)
-    if n_tiles <= 0:
-        raise RuntimeError(f"conv_tiles: CUDA error {-n_tiles}")
+    sms = _sm_count(x0.device.index)
+    # each 3x3 product's route (the second reads c_out channels) and tiles
+    routes = [conv3x3_route(B, c, c_out, H, T, bf16, sms)
+              for c in ((c_in,) if block_only else (c_in, c_out))]
+    tiles = [lib.conv_tiles(B, c_out, H, T, r) for r in routes]
+    if min(tiles) <= 0:
+        raise RuntimeError(f"conv_tiles: CUDA error {-min(tiles)}")
     new = lambda c: torch.empty((B, c, H, T), device=x0.device)  # noqa: E731
     h = new(c_out)
-    part = torch.empty((B, c_out // 8, n_tiles, 2), device=x0.device)
+    part = torch.empty((B, c_out // 8, max(tiles), 2), device=x0.device)
     stats = torch.empty((B, GROUPS, 2), device=x0.device)
     resblock2d.launches += 1
     resblock2d.bf16_launches += bool(bf16)
+    resblock2d.wgmma_launches += any(routes)
 
     conv3x3_fn, conv1x1_fn = _build.launcher("conv3x3", bf16), _build.launcher("conv1x1", bf16)
 
-    def conv_norm(inputs, chans, wt, bias):
-        _build.call(lib, conv3x3_fn, p(inputs[0]), chans[0], p(inputs[1]), chans[1],
-                    p(lengths), p(wt), p(bias), p(h), p(part), B, H, T, c_out,
-                    int(masked_stats), s)
-        _build.call(lib, "gn_stats", p(part), p(lengths), p(stats), B, c_out, n_tiles,
+    def conv_norm(inputs, chans, wt, bias, j):
+        args = (p(inputs[0]), chans[0], p(inputs[1]), chans[1], p(lengths), p(wt), p(bias),
+                p(h), p(part), B, H, T, c_out, int(masked_stats))
+        if routes[j]:
+            _build.call(lib, "conv3x3_wgmma", *args, routes[j], s)
+        else:
+            _build.call(lib, conv3x3_fn, *args, s)
+        _build.call(lib, "gn_stats", p(part), p(lengths), p(stats), B, c_out, tiles[j],
                     H, T, int(masked_stats), float(eps), s)
 
     def act(gamma, beta, tv, res, res_masked, out):
@@ -333,11 +373,11 @@ def _resblock2d_cuda(lib, xs, lengths, temb, w, masked_stats, eps, attn, bf16=Fa
                     p(wt), p(bias), p(resid), p(gain), p(out), B, out.shape[1], H, T, s)
         return out
 
-    conv_norm((x0, x1), (cs[0], c1), w.w1, w.b1)
+    conv_norm((x0, x1), (cs[0], c1), w.w1, w.b1, 0)
     if block_only:
         return act(w.gn1_w, w.gn1_b, None, None, False, new(c_out))
     a = act(w.gn1_w, w.gn1_b, temb, None, False, new(c_out))
-    conv_norm((a, None), (c_out, 0), w.w2, w.b2)
+    conv_norm((a, None), (c_out, 0), w.w2, w.b2, 1)
     if w.w_res is None:
         res, res_masked = x0, True
     else:

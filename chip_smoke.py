@@ -38,7 +38,11 @@ fatal on failure (exit code 1, no result line):
    not); K1 and K4, which no single library call computes, get cuDNN's
    time for their convolutions (K1's 3x3 ones, K4's 18 per stage) as a
    yardstick of one part, and a line sums K1's calls into the kernel
-   table's rows 1 and 2 per request;
+   table's rows 1 and 2 per request; K1's cases record each 3x3 product's
+   route (`ops/resblock2d.py:conv3x3_route`) and blocks and the 3x3
+   products' device time beside their bound, with cases at bucket 1024 and
+   at v6.batch's B=16, and a `k1_wgmma_route` line gives the `wgmma`
+   kernels' registers, blocks an SM and shared memory;
 3b. bf16: the bf16 modes of K1-K4 (`bf16=True`, the JAX kernels' bf16
    dots: operands rounded to bf16, float32 sums) against their plain bf16
    versions at the shapes of phase 3 (K1's 13 call sites and its padded,
@@ -67,8 +71,9 @@ fatal on failure (exit code 1, no result line):
    both GroupNorm statistics modes) and one bench-shape request through
    `synthesize_to_wav` (T_x 96, durations pinned to 768 frames, 50 steps),
    with every launch counter set to 0 just before and read just after:
-   all five kernels must have run as often as the path calls them, and no
-   plain version on the card;
+   all five kernels must have run as often as the path calls them, K1 on
+   the `wgmma` route as often as the route rule gives the buckets (none in
+   6b's bf16 mode), and no plain version on the card;
 6b. the same four requests with `kernel_bf16=True`: the same launch
    counts, every K1-K4 launch in the bf16 mode, no plain version on the
    card; the bench request's distance from the float32 one with the same
@@ -77,8 +82,9 @@ fatal on failure (exit code 1, no result line):
    bf16-vs-float32 distance there and below the card's float32 request's;
 7. one more bench-shape request under `torch.profiler`: kernel time by
    name and by the port's kernel it belongs to, K1's time by part (3x3
-   conv, 1x1 products, GroupNorm statistics and application, attention
-   core) with launches per evaluation, and the card's idle share; the
+   conv, by route too, beside its bound; 1x1 products, GroupNorm statistics
+   and application, attention core) with launches per evaluation, and the
+   card's idle share (the port's span annotations are not kernels); the
    profile is taken through `utils/profiling.trace`, and its Chrome trace
    read back by `utils/trace_analysis` must agree with those sums within
    1%: `device_busy_seconds` with the device kernel ms and
@@ -240,6 +246,7 @@ entry each) and the card line come before the last, which is
 """
 
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -290,6 +297,34 @@ TOL_WAV = 2e-3
 TOL_WAV_BF16 = 6.5e-4
 TOL_DEC_BF16 = 1.05e-3
 N_STEPS = 50
+# K1's 13 calls of one score evaluation of the flagship U-Net, in call order:
+# (input channels, None for the first block's input planes; output channels;
+# level, the call running at rows F / 2^l and frames T / 2^l; block_only)
+K1_CALLS = [(None, 64, 0, False), (64, 64, 0, False), (64, 128, 1, False),
+            (128, 128, 1, False), (128, 256, 2, False), (256, 256, 2, False),
+            (256, 256, 2, False), (256, 256, 2, False), (512, 128, 2, False),
+            (128, 128, 2, False), (256, 64, 1, False), (64, 64, 1, False),
+            (64, 64, 0, True)]
+
+
+def k1_products(F, planes, bucket):
+    """(c_in, c_out, H, T, call) of every 3x3 product of one evaluation."""
+    out = []
+    for i, (c_in, c_out, lv, block_only) in enumerate(K1_CALLS):
+        H, T = F >> lv, bucket >> lv
+        out.append((c_in or planes, c_out, H, T, i))
+        if not block_only:
+            out.append((c_out, c_out, H, T, i))
+    return out
+
+
+def k1_wgmma_calls(K1, B, F, planes, bucket, sms):
+    """K1 calls of one evaluation with a 3x3 product on the `wgmma` route
+    (`ops/resblock2d.py:conv3x3_route`)."""
+    return len({i for c_in, c_out, H, T, i in k1_products(F, planes, bucket)
+                if K1.conv3x3_route(B, c_in, c_out, H, T, False, sms)})
+
+
 # K6's floor of dependent steps: per frame a max and an add (forward) and a
 # bit test and a decrement (backtrace), each at least 4 cycles, at the
 # H100 SXM's 1.98 GHz maximum clock (NVIDIA data sheet)
@@ -2989,6 +3024,12 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def device_kernel(a):
+        """A device event of the profile that is work, not the device-side
+        copy of a user annotation (the port's `arttts.*` spans among them)."""
+        return (a.device_type == DeviceType.CUDA and not getattr(a, "is_user_annotation", False)
+                and not a.key.startswith("arttts."))
+
     def device_ms(fn, key=None, n=20):
         """Device time per call of the kernels whose name holds `key` (all
         kernels when None), from torch.profiler over n calls."""
@@ -2999,7 +3040,7 @@ def main():
                 fn()
             torch.cuda.synchronize()
         us = sum(a.self_device_time_total for a in prof.key_averages()
-                 if a.device_type == DeviceType.CUDA and (key is None or key in a.key))
+                 if device_kernel(a) and (key is None or key in a.key))
         return us / 1e3 / n
 
     def compare(kernel_fn, plain_fn):
@@ -3144,6 +3185,17 @@ def main():
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     k1_lib = _build.library("resblock2d")
+    # the `wgmma` route's kernels as the runtime sees them (registers a
+    # thread, blocks an SM, dynamic shared memory a block) and as ptxas
+    # reported them
+    wgmma_tiles = {}
+    for rows in K1.WGMMA_ROWS:
+        info = (ctypes.c_int * 3)()
+        _build.call(k1_lib, "conv_wgmma_info", rows, info)
+        wgmma_tiles[rows] = dict(registers=info[0], blocks_per_sm=info[1], smem_bytes=info[2])
+    emit({"k1_wgmma_route": {"card": card, "sms": n_sm, "tiles": wgmma_tiles,
+                             "ptxas": {fn: lines for fn, lines in ptxas.items()
+                                       if "WgmmaTile" in fn}}})
 
     def k1_case(name, cs, c_out, H, T, lengths, attn=False, masked=True, block_only=False,
                 in_eval=True, artic=False, bf16=False):
@@ -3178,12 +3230,20 @@ def main():
         # the products run on the tensor cores in three TF32 passes (3xTF32)
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
         f32_ms, _ = bound(flops, nbytes)
-        # blocks of each product launch (csrc/resblock2d.cu's launcher picks
-        # the tile per shape): the 3x3 convs, then the 1x1 products
-        blocks = k1_lib.conv_blocks(B, c_out, H, T)
-        blocks_1x1 = [k1_lib.conv_blocks(B, c_out, H, T)] if w.w_res is not None else []
+        # blocks of each product launch: the 3x3 convs on the route
+        # `conv3x3_route` gives them (rows of the `wgmma` tile, or 0 for the
+        # `mma.sync` body, which picks its tile per shape), then the 1x1
+        # products (`mma.sync`)
+        routes = [K1.conv3x3_route(B, c, c_out, H, T, False, n_sm)
+                  for c in ((c_in,) if block_only else (c_in, c_out))]
+        blocks_3x3 = [k1_lib.conv_blocks(B, c_out, H, T, r) for r in routes]
+        blocks = min(blocks_3x3)
+        blocks_1x1 = [k1_lib.conv_blocks(B, c_out, H, T, 0)] if w.w_res is not None else []
         if attn:
-            blocks_1x1 += [k1_lib.conv_blocks(B, 384, H, T), k1_lib.conv_blocks(B, c_out, H, T)]
+            blocks_1x1 += [k1_lib.conv_blocks(B, 384, H, T, 0),
+                           k1_lib.conv_blocks(B, c_out, H, T, 0)]
+        # the 3x3 products alone: device time beside their 3xTF32 bound
+        flops_3x3 = 2 * 9 * c_out * P * (c_in + (0 if block_only else c_out))
         # yardstick of one part: the block's 3x3 convolutions through cuDNN
         # (TF32 off), never called by the port; not the block's function
         x_cat = torch.cat(xs, dim=1)
@@ -3195,10 +3255,14 @@ def main():
         cases.append(dict(kernel="resblock2d", case=name, shape=[B, list(cs), c_out, H, T],
                           lengths=lengths, attn=attn, masked_stats=masked, block_only=block_only,
                           in_eval=in_eval, artic=artic, max_abs_err=err, max_abs_ref=scale,
-                          same_bits_twice=same_bits, blocks=blocks, blocks_1x1=blocks_1x1,
+                          same_bits_twice=same_bits, wgmma_rows=routes, wgmma=any(routes),
+                          blocks=blocks, blocks_3x3=blocks_3x3, blocks_1x1=blocks_1x1,
                           ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, bound_f32_cuda_core_ms=f32_ms,
                           device_ms_per_call=device_ms(kern) if timed else None,
+                          conv3x3_device_ms=(device_ms(kern, "conv3x3_kernel") if timed
+                                             else None),
+                          conv3x3_bound_ms=3 * flops_3x3 / PEAK_TF32_FLOPS * 1e3,
                           library_ms=None,
                           library_conv_ms=cuda_ms(lib_conv) if timed else None,
                           library_conv_device_ms=device_ms(lib_conv) if timed else None))
@@ -3375,6 +3439,12 @@ def main():
             in_eval=False)
     k1_case("B=2 padded, unmasked", (128, 128), 64, 40, 384, [301, 384], masked=False,
             in_eval=False)
+    # bucket 1024 (the longest requests): the `wgmma` route's 2-row tile at
+    # 20 rows with attention, and its 4-row tile at 40 rows, padded
+    k1_case("bucket 1024 ResnetBlock2d_5+attn2", (256,), 256, 20, 256, [256], attn=True,
+            in_eval=False)
+    k1_case("bucket 1024 ResnetBlock2d_3+attn1, padded", (128,), 128, 40, 512, [455],
+            attn=True, in_eval=False)
     updown_case("downsample2d", 64, 80, 768, [768])
     updown_case("downsample2d", 128, 40, 384, [384])
     updown_case("downsample2d", 64, 80, 768, [701])
@@ -3395,6 +3465,9 @@ def main():
             in_eval=False, artic=True)
     k1_case("artic ResnetBlock2d_5+attn2", (256,), 256, 4, 128, [128], attn=True,
             in_eval=False, artic=True)
+    # v6.batch's batches of 16 at bucket 256 (the `wgmma` route's 4-row tile)
+    k1_case("artic B=16 ResnetBlock2d_1+attn0, padded", (64,), 64, 16, 256,
+            [256, 201] * 8, attn=True, in_eval=False, artic=True)
     updown_case("downsample2d", 64, 16, 512, [512], artic=True)
     updown_case("downsample2d", 128, 8, 256, [256], artic=True)
     updown_case("conv_transpose2d", 128, 4, 128, [128], artic=True)
@@ -3710,6 +3783,7 @@ def main():
     for f in counters + plains:
         setattr(f, "launches" if f in counters else "cuda_calls", 0)
     GradLogPEstimator2d.cuda_calls = 0
+    K1.resblock2d.wgmma_launches = 0
 
     served = []
     for (kind, n), x in zip(requests, texts):
@@ -3734,7 +3808,13 @@ def main():
     launches = {f.__name__: f.launches for f in counters}
     plain_on_card = {f.__name__: f.cuda_calls for f in plains}
     plain_on_card["GradLogPEstimator2d"] = GradLogPEstimator2d.cuda_calls
+    # K1 calls with a 3x3 product on the `wgmma` route: as many as the
+    # route rule gives the requests' buckets
+    wgmma_want = N_STEPS * sum(k1_wgmma_calls(K1, 1, cfg.n_feats, 2, r["bucket"], n_sm)
+                               for r in served)
     emit({"main_path": {"card": card, "requests": served, "launches": launches,
+                        "wgmma_launches": K1.resblock2d.wgmma_launches,
+                        "wgmma_launches_expected": wgmma_want,
                         "plain_calls_on_card": plain_on_card}})
     if not all(r["ok"] for r in served):
         fail("a served request gave a wrong or non-finite waveform")
@@ -3749,6 +3829,8 @@ def main():
         fail(f"launch counts {launches}, expected {want}")
     if any(plain_on_card.values()):
         fail(f"a plain version ran on the card in the main path: {plain_on_card}")
+    if not 0 < K1.resblock2d.wgmma_launches == wgmma_want:
+        fail(f"K1 calls on the wgmma route {K1.resblock2d.wgmma_launches}, expected {wgmma_want}")
 
     # ---- 6b. the main path in bf16: the same four requests with kernel_bf16 ----
     t6b = time.perf_counter()
@@ -3758,6 +3840,7 @@ def main():
     for f in counters16:
         f.bf16_launches = 0
     GradLogPEstimator2d.cuda_calls = 0
+    K1.resblock2d.wgmma_launches = 0
     gen16 = torch.Generator(device=dev).manual_seed(2)
     served16 = []
     for (kind, n), x in zip(requests, texts):
@@ -3783,6 +3866,7 @@ def main():
                              rtf=wall / (bucket * hop / sr), ok=ok))
     launches16 = {f.__name__: f.launches for f in counters}
     bf16_launches = {f.__name__: f.bf16_launches for f in counters16}
+    wgmma16 = K1.resblock2d.wgmma_launches  # before the float32 request below
     plain16 = {f.__name__: f.cuda_calls for f in plains}
     plain16["GradLogPEstimator2d"] = GradLogPEstimator2d.cuda_calls
     # the bench request in float32 from the same draws: how far the mode moves the wav
@@ -3812,7 +3896,8 @@ def main():
     cpu_check["ok"] = (bool(torch.isfinite(w16_gpu).all()) and err16 <= TOL_WAV_BF16
                        < min(cpu_check["cpu_bf16_vs_f32"], cpu_check["f32_request_vs_cpu_bf16"]))
     emit({"main_path_bf16": {"card": card, "requests": served16, "launches": launches16,
-                             "bf16_launches": bf16_launches, "plain_calls_on_card": plain16,
+                             "bf16_launches": bf16_launches,
+                             "wgmma_launches": wgmma16, "plain_calls_on_card": plain16,
                              "bench_wav_bf16_vs_f32_max_abs": bf16_vs_f32,
                              "card_vs_cpu_request": cpu_check,
                              "phase_s": time.perf_counter() - t6b}})
@@ -3823,6 +3908,8 @@ def main():
              f"expected {want} and all of K1-K4's in the bf16 mode")
     if any(plain16.values()):
         fail(f"bf16: a plain version ran on the card in the main path: {plain16}")
+    if wgmma16:
+        fail(f"bf16: {wgmma16} K1 calls took the float32 wgmma route")
     if not cpu_check["ok"]:
         fail(f"bf16: the request on the card disagrees with the CPU's plain bf16 versions: "
              f"{cpu_check}")
@@ -3853,7 +3940,7 @@ def main():
         """(device ms and count by kernel name, busy ms, ms and launches by family)."""
         by_name = {}
         for a in prof.key_averages():
-            if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0:
+            if device_kernel(a) and a.self_device_time_total > 0:
                 by_name[a.key] = (a.self_device_time_total / 1e3, a.count)
         by_family = dict.fromkeys(list(families) + ["other"], 0.0)
         calls = dict.fromkeys(list(families) + ["other"], 0)
@@ -3885,6 +3972,19 @@ def main():
         if part:
             k1_by_part[part[0]]["ms"] += ms
             k1_by_part[part[0]]["launches_per_evaluation"] += c / N_STEPS
+    # the 3x3 part by route (the `wgmma` kernels are `conv3x3_kernel`s of
+    # a `WgmmaTile`), an evaluation's time beside its 3xTF32 bound
+    conv = k1_by_part["3x3 conv"]
+    for route, mark in (("wgmma", True), ("mma_sync", False)):
+        conv[route] = dict(ms=0.0, launches_per_evaluation=0.0)
+        for k, (ms, c) in by_name.items():
+            if "conv3x3_kernel" in k and ("WgmmaTile" in k) == mark:
+                conv[route]["ms"] += ms
+                conv[route]["launches_per_evaluation"] += c / N_STEPS
+    conv["ms_per_evaluation"] = conv["ms"] / N_STEPS
+    conv["bound_ms_per_evaluation"] = 3 * sum(
+        2 * 9 * c_in * c_out * H * T for c_in, c_out, H, T, _ in
+        k1_products(cfg.n_feats, 2, 768)) / PEAK_TF32_FLOPS * 1e3
     emit({"trace": {"card": card, "request": "bench shape, 768 frames, 50 steps",
                     "wall_ms_under_profiler": wall_ms, "device_kernel_ms": busy,
                     "idle_share": (1 - busy / wall_ms) if busy else None,

@@ -314,12 +314,32 @@ def _k1_product_by_split(x, w, b, passes=3, wk=4):
     return total.reshape(-1, B, H, T).permute(1, 0, 2, 3) + b[:, None, None]
 
 
-def _k1_by_split(xs, lengths, temb, w, passes=3, masked_stats=True, eps=1e-6):
+def _k1_wgmma_product_by_split(x, w, b, passes=3):
+    """K1's 3x3 product on the `wgmma` route (`wgmma_body`): per staged
+    chunk of 8 input channels, per tap, one k8 step of each pass (lo.hi,
+    hi.lo, hi.hi; both operands split once, by truncation) into one
+    accumulator; then the bias."""
+    B, C, H, T = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    acc = torch.zeros(w.shape[0], B * H * T)
+    for ci0 in range(0, C, 8):
+        for tap in range(9):
+            kh, kw = divmod(tap, 3)
+            win = xp[:, ci0:ci0 + 8, kh:kh + H, kw:kw + T].permute(1, 0, 2, 3).reshape(8, -1)
+            _mma(acc, w[:, ci0:ci0 + 8, kh, kw], win, passes, _split_trunc)
+    return acc.reshape(-1, B, H, T).permute(1, 0, 2, 3) + b[:, None, None]
+
+
+def _k1_by_split(xs, lengths, temb, w, passes=3, masked_stats=True, eps=1e-6, wgmma=False):
     """The block with K1's products emulated; GroupNorm, mish, the time
-    embedding and the residual sum through `resblock2d_plain`'s code."""
+    embedding and the residual sum through `resblock2d_plain`'s code.
+    `wgmma`: the 3x3 products on the `wgmma` route, else on the `mma.sync`
+    body; 1x1 products are the `mma.sync` body's."""
     prod = lambda x, w_, b: _k1_product_by_split(x, w_, b, passes)  # noqa: E731
+    conv3x3 = prod if not wgmma else (  # noqa: E731
+        lambda x, w_, b: _k1_wgmma_product_by_split(x, w_, b, passes))
     return K1.block_with_products(xs, lengths, temb, w, masked_stats=masked_stats, eps=eps,
-                                  conv3x3=prod, conv1x1=prod)
+                                  conv3x3=conv3x3, conv1x1=prod)
 
 
 def _k4_conv_by_split(x, w, b, dilation, passes=3):
@@ -392,7 +412,8 @@ def test_tf32_split_reproduces_float32():
 
 
 @pytest.mark.parametrize("kernel", ["downsample2d", "conv_transpose2d", "resblock2d",
-                                    "mrf_stage", "upsample1d", "upsample1d 64->32"])
+                                    "mrf_stage", "upsample1d", "upsample1d 64->32",
+                                    "resblock2d wgmma"])
 def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     """The kernels' arithmetic on the CPU: their decomposition in 3xTF32 meets
     TOL_KERNEL against the plain version at C=128 (K = 1,152 for K2, 512 per
@@ -400,7 +421,9 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
     chunks (256, 256) -> 128 (K = 4,608 in the first conv, 512 in the
     residual projection), and K4's over a whole C=128 MRF stage (k 3/7/11,
     dilations 1/3/5, K up to 1,408, both sequence edges inside the 96
-    frames), and K5's polyphase GEMM at the vocoder's 128 -> 64 (K = 256)
+    frames), K1's block again with its 3x3 products in the `wgmma` route's
+    order and split, and K5's polyphase
+    GEMM at the vocoder's 128 -> 64 (K = 256)
     and 64 -> 32 (K = 128) upsamples, ragged T, at the padding of both
     vocoders (mel (k - u) // 2 and SPARC u // 2 + u % 2 with output padding
     u % 2 are both 1 and 0 at stride 2) and at padding 2 with output
@@ -419,7 +442,7 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
         x = torch.randn(2, C, 6, 64, generator=g)
         w = torch.randn(C, C, 4, 4, generator=g) * (4 * C) ** -0.5
         emulate, plain = _k3_by_split, updown.conv_transpose2d_plain
-    elif kernel == "resblock2d":
+    elif kernel.startswith("resblock2d"):
         x = [torch.randn(2, 256, 4, 16, generator=g) for _ in range(2)]
         lengths = torch.tensor([16, 11], dtype=torch.int32)
         temb = torch.randn(2, C, generator=g)
@@ -433,7 +456,7 @@ def test_3xtf32_decomposition_holds_float32_tolerance(kernel):
             w_res=torch.randn(C, 512, generator=g) * 512 ** -0.5,
             b_res=torch.randn(C, generator=g) * 0.1)
         emulate = lambda x, lengths, w, b, passes=3: _k1_by_split(  # noqa: E731
-            x, lengths, temb, w, passes)
+            x, lengths, temb, w, passes, wgmma=kernel.endswith("wgmma"))
         plain = lambda x, lengths, w, b: K1.resblock2d_plain(  # noqa: E731
             x, lengths, temb, w, masked_stats=True, eps=1e-6)
     elif kernel.startswith("upsample1d"):  # K5 at chip_smoke.py's weight scales
@@ -554,6 +577,135 @@ def test_resblock_launcher_refuses_malformed_operands(fault, match):
         a = dataclasses.replace(a, gain=torch.zeros(()))
     with pytest.raises(ValueError, match=match):
         K1._resblock2d_cuda(None, xs, lens, temb, w, True, 1e-6, a)
+
+
+# ---- K1's 3x3 route: which body each product of the v2 and v6 U-Nets takes ------
+SMS = 132  # the H100's SMs
+# the `mma.sync` body's tiles, largest first: (output channels, rows) x 32 frames
+_MMA_TILES = ((64, 4), (64, 2), (32, 2))
+
+
+def _mma_blocks(B, c_out, H, T):
+    """Blocks of the `mma.sync` body's launch (csrc/resblock2d.cu:pick_tile)."""
+    counts = [-(-H // r) * -(-T // 32) * (c_out // m) * B for m, r in _MMA_TILES]
+    return next((n for n in counts[:2] if n >= SMS), counts[2])
+
+
+def _unet_3x3_shapes(c_first):
+    """(c_in, c_out, level) of every 3x3 product of one score evaluation of
+    the flagship U-Net (dim 64, mults 1/2/4, `models/unet2d_fast.py`): the
+    first and second product of ResnetBlock2d_0..11 in their call order, and
+    the final Block2d's one; level l runs at rows F / 2^l and frames T / 2^l."""
+    blocks = [(c_first, 64, 0), (64, 64, 0), (64, 128, 1), (128, 128, 1), (128, 256, 2),
+              (256, 256, 2), (256, 256, 2), (256, 256, 2), (512, 128, 2), (128, 128, 2),
+              (256, 64, 1), (64, 64, 1)]
+    return ([(ci, co, lv) for ci, co, lv in blocks] + [(co, co, lv) for _, co, lv in blocks]
+            + [(64, 64, 0)])
+
+
+# (configuration, feature rows, input planes of the first block, batch sizes,
+# frame buckets): v2 serving (B=1) and the CLI's batches (B=4); v6.batch
+# (B=16, items of 2-8 s at 50 Hz)
+_ROUTE_CONFIGS = [("v2", 80, 2, (1, 4), (128, 256, 384, 512, 768, 1024)),
+                  ("v6", 16, 3, (1, 4, 16), (128, 256, 384, 512))]
+
+
+@pytest.mark.parametrize("config", [c[0] for c in _ROUTE_CONFIGS])
+def test_conv3x3_route_fills_the_card_where_the_old_tiles_did(config):
+    """`conv3x3_route` at every 3x3 shape of the configuration's U-Net at each
+    bucket: the first block's 2 or 3 planes and the bf16 mode keep the
+    `mma.sync` body; a routed product takes the first `wgmma` tile that gives
+    every SM a block, so it reaches 132 blocks wherever the old tiles did;
+    and the route takes most of an evaluation's operations at bucket 1024."""
+    _, F_, c_first, batches, buckets = next(c for c in _ROUTE_CONFIGS if c[0] == config)
+    for B in batches:
+        for bucket in buckets:
+            routed_flops = total_flops = 0
+            for c_in, c_out, lv in _unet_3x3_shapes(c_first):
+                H, T = F_ >> lv, bucket >> lv
+                rows = K1.conv3x3_route(B, c_in, c_out, H, T, False, SMS)
+                assert K1.conv3x3_route(B, c_in, c_out, H, T, True, SMS) == 0
+                flops = 2 * 9 * c_in * c_out * B * H * T
+                total_flops += flops
+                if c_in in (2, 3):
+                    assert rows == 0, (B, bucket, c_in)
+                    continue
+                counts = {r: -(-H // r) * -(-T // 64) * (c_out // 64) * B for r in K1.WGMMA_ROWS}
+                if rows:
+                    routed_flops += flops
+                    assert counts[rows] >= SMS
+                    assert all(counts[r] < SMS for r in K1.WGMMA_ROWS if r > rows)
+                else:
+                    assert max(counts.values()) < SMS, (B, bucket, c_in, c_out, H, T)
+                old = _mma_blocks(B, c_out, H, T)
+                new = counts[rows] if rows else old
+                assert new >= SMS or old < SMS, (B, bucket, c_in, c_out, H, T, rows)
+            if config == "v2" and B == 1 and bucket == 1024:
+                # the longest requests: all but ResnetBlock2d_0's first product
+                # and the 128-channel outputs at 20 rows
+                assert routed_flops / total_flops > 0.85, routed_flops / total_flops
+
+
+class _RecordingK1Lib:
+    """Stands in for K1's library: answers `conv_tiles` and `attn_chunks` as
+    csrc/resblock2d.cu does and records every launcher `_build.call` runs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def conv_tiles(self, B, c_out, H, T, rows):
+        if rows:
+            return -(-H // rows) * -(-T // 64)
+        counts = [-(-H // r) * -(-T // 32) * (c_out // m) * B for m, r in _MMA_TILES]
+        r = next((r for (m, r), n in zip(_MMA_TILES[:2], counts[:2]) if n >= SMS), 2)
+        return -(-H // r) * -(-T // 32)
+
+    def attn_chunks(self, P):
+        return -(-P // 512)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", ["ResnetBlock2d_0 at 80x768", "ResnetBlock2d_5+attn2 at 20x256",
+                                   "ResnetBlock2d_9+attn4 at 20x256"])
+def test_resblock_launches_each_product_on_its_route(monkeypatch, shape, bf16):
+    """The wrapper's launches, recorded on the CPU: each 3x3 product goes to
+    `conv3x3_wgmma` with the rows `conv3x3_route` gives, or to the
+    `mma.sync` launcher; its GroupNorm partials are reduced over that
+    route's tiles; the 1x1 products and the bf16 mode keep their launchers;
+    `wgmma_launches` counts the calls with a product on the route."""
+    c_in, c_out, H, T, attn = {"ResnetBlock2d_0 at 80x768": (2, 64, 80, 768, False),
+                               "ResnetBlock2d_5+attn2 at 20x256": (256, 256, 20, 256, True),
+                               "ResnetBlock2d_9+attn4 at 20x256": (128, 128, 20, 256, True)}[shape]
+    lib = _RecordingK1Lib()
+    monkeypatch.setattr(K1._build, "call", lambda lib_, fn, *args: lib_.calls.append((fn, args)))
+    monkeypatch.setattr(K1._build, "stream", lambda t: 0)
+    monkeypatch.setattr(K1, "_sm_count", lambda index: SMS)
+    xs = [torch.zeros(1, c_in, H, T)]
+    lens = torch.tensor([T], dtype=torch.int32)
+    w, a = _guard_block(c_in, c_out, attn)
+    before = (K1.resblock2d.launches, K1.resblock2d.wgmma_launches, K1.resblock2d.bf16_launches)
+    K1._resblock2d_cuda(lib, xs, lens, torch.zeros(1, c_out), w, True, 1e-6, a, bf16)
+    routes = [K1.conv3x3_route(1, c, c_out, H, T, bf16, SMS) for c in (c_in, c_out)]
+    want = []
+    for rows in routes:
+        want.append(("conv3x3_wgmma", rows) if rows else
+                    ("conv3x3_bf16" if bf16 else "conv3x3", None))
+        want.append(("gn_stats", lib.conv_tiles(1, c_out, H, T, rows)))
+        want.append(("gn_act", None))
+    one = "conv1x1_bf16" if bf16 else "conv1x1"
+    if c_in != c_out:
+        want.insert(5, (one, None))
+    if attn:
+        want += [(one, None), ("attention_core_bf16" if bf16 else "attention_core", None),
+                 (one, None)]
+    got = [(fn, args[-2] if fn == "conv3x3_wgmma" else args[5] if fn == "gn_stats" else None)
+           for fn, args in lib.calls]
+    assert got == want
+    assert routes == ([0, 0] if bf16 else {"ResnetBlock2d_0 at 80x768": [0, 4],
+                                           "ResnetBlock2d_5+attn2 at 20x256": [2, 2],
+                                           "ResnetBlock2d_9+attn4 at 20x256": [0, 0]}[shape])
+    after = (K1.resblock2d.launches, K1.resblock2d.wgmma_launches, K1.resblock2d.bf16_launches)
+    assert after == (before[0] + 1, before[1] + any(routes), before[2] + bf16)
 
 
 # ---- K4's wrapper: where it runs, and what it refuses before a launch ----------
